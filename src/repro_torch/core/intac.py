@@ -1,0 +1,252 @@
+"""INTAC numerics in PyTorch: exact accumulation in an integer domain.
+
+The counterpart of the reference's ``core/intac.py`` for the pieces the
+single-device reduce path uses: quantization to a shared power-of-two
+scale, int32 limbs with an exact wraparound predicate, and the
+exponent-indexed digit bins of the ``exact2`` residual and the
+``procrastinate`` tier.  Every function is elementwise on tensors and
+runs on whatever device its input lives on; each one gives the
+reference's bits on the inputs where both are IEEE-exact.
+
+Two places depart from a literal transcription, on purpose:
+
+* ``choose_scale`` computes its exponent exactly, from the integer
+  mantissa of ``max_abs`` and the row count, instead of
+  ``floor(qbits - log2(N) - log2(max))`` in f32.  The f32 logs are
+  inexact near powers of two: the reference's scale is then 2x the exact
+  one (breaking its own ``n * max * scale <= 2^qbits`` bound) or half of
+  it (merely conservative).  Both deviations are pinned by the tests.
+* Subnormals are kept, as IEEE arithmetic on the CPU and the GPU keeps
+  them (nothing here is built with flush-to-zero).  JAX on the CPU
+  flushes them to zero, so a stream whose values or ``exact2`` residuals
+  fall below 2^-126 ends in different bits; the tests pin that too.
+
+``ldexp`` follows the reference's frexp-based construction, with the
+power of two built exactly from its bit pattern, and ``_ldexp2`` keeps
+its two half-exponent steps.  Float-to-int32 casts saturate and map NaN
+to 0, as XLA's conversion does.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+LIMB_SHIFT = 15
+BIN_BITS = 8
+NUM_BINS = 6
+#: per-bin int32 headroom: max terms accumulated with no overflow
+BIN_MAX_TERMS = 1 << (31 - BIN_BITS - 1)
+#: the exact2 residual superaccumulator: digits of RES_BIN_BITS bits,
+#: RES_NUM_BINS of them, anchored at the quantum (a 49-bit window)
+RES_BIN_BITS = 7
+RES_NUM_BINS = 7
+
+_I32_MIN = -(1 << 31)
+_I32_MAX = (1 << 31) - 1
+
+
+def _i32(e, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(e, dtype=torch.int32, device=like.device)
+
+
+def pow2(e: torch.Tensor) -> torch.Tensor:
+    """Exact f32 2^e for integer tensor ``e``: normal powers from their
+    bit pattern, subnormal ones as a product of two normal powers (one
+    rounding-free multiply), 0 below 2^-149 and inf above 2^127."""
+    e = e.to(torch.int32)
+    normal = ((e.clamp(-126, 127) + 127) << 23).view(torch.float32)
+    tiny = ((e.clamp(-252, -127) + 126 + 127) << 23).view(torch.float32) \
+        * torch.tensor(2.0 ** -126, dtype=torch.float32, device=e.device)
+    out = torch.where(e >= -126, normal, tiny)
+    return torch.where(e > 127, torch.full_like(out, float("inf")), out)
+
+
+def ldexp(x: torch.Tensor, e) -> torch.Tensor:
+    """x * 2^e, built as the reference builds it: split x with frexp,
+    add the exponents, multiply the mantissa by an exact power of two."""
+    x = x.to(torch.float32)
+    e = _i32(e, x)
+    m, ex = torch.frexp(x)
+    big = ex.to(torch.int32) + e
+    m = torch.where(big > 0, m * 2, m)
+    big = torch.where(big > 0, big - 1, big)
+    y = m * pow2(big)
+    return torch.where(torch.isinf(x) | (x == 0), x, y)
+
+
+def _ldexp2(x: torch.Tensor, e) -> torch.Tensor:
+    """x * 2^e in two half-exponent ldexp steps (floor-halved, as the
+    reference's ``e // 2``), so no intermediate factor over/underflows."""
+    e = _i32(e, x)
+    h = torch.div(e, 2, rounding_mode="floor")
+    return ldexp(ldexp(x, h), e - h)
+
+
+def to_i32(x: torch.Tensor) -> torch.Tensor:
+    """Saturating f32 -> int32 cast with NaN -> 0 (XLA's conversion;
+    torch's own cast is undefined out of range)."""
+    x = torch.nan_to_num(x.to(torch.float32), nan=0.0)
+    hi = x >= 2.0 ** 31
+    out = x.clamp(float(_I32_MIN), 2.0 ** 31).masked_fill(hi, 0.0)
+    out = out.to(torch.int32)
+    return out.masked_fill(hi, _I32_MAX)
+
+
+def two_sum(a: torch.Tensor, b: torch.Tensor):
+    """Knuth two-sum: s = fl(a+b) and the exact rounding error e, six
+    IEEE ops in this order (never to be simplified)."""
+    s = a + b
+    bp = s - a
+    e = (a - (s - bp)) + (b - bp)
+    return s, e
+
+
+def choose_scale(max_abs, num_terms: int, qbits: int = 30) -> torch.Tensor:
+    """Power-of-two scale 2^e with e = floor(qbits - log2(N * max_abs)),
+    computed exactly.
+
+    ``max_abs`` (floored at 2^-126) is M * 2^(ex-24) with an integer
+    24-bit mantissa M, so L = N * M is an exact int64 and
+    log2(N * max) = log2(L) + ex - 24: with b = bit_length(L), the floor
+    is qbits - (ex - 24) - b, plus one when L is a power of two.  The
+    degenerate all-zero (or NaN) stream gets the unit scale, and e is
+    clamped to the f32 exponent range, as in the reference.
+    """
+    max_abs = torch.as_tensor(max_abs, dtype=torch.float32)
+    n = max(int(num_terms), 1)
+    floored = torch.clamp(max_abs, min=2.0 ** -126)
+    mant, ex = torch.frexp(floored)
+    big_m = (mant.to(torch.float64) * (1 << 24)).to(torch.int64)
+    k = n.bit_length()
+    lo_bits = 23 + k                       # L in [2^(22+k), 2^(24+k))
+    prod = big_m * n
+    b = torch.where(prod >= (1 << lo_bits), lo_bits + 1, lo_bits)
+    is_pow2 = (big_m == (1 << 23)) & ((n & (n - 1)) == 0)
+    e = qbits - (ex.to(torch.int64) - 24) - b + is_pow2.to(torch.int64)
+    e = torch.where(torch.isinf(max_abs), torch.full_like(e, -126), e)
+    e = torch.where(max_abs > 0, e, torch.zeros_like(e))
+    return pow2(e.clamp(-126, 127).to(torch.int32))
+
+
+def quantize(x: torch.Tensor, scale) -> torch.Tensor:
+    """round-half-even(x * scale) as int32."""
+    return to_i32(torch.round(x.to(torch.float32) * scale))
+
+
+def wrap_add(a: torch.Tensor, b: torch.Tensor):
+    """int32 add plus the exact two's-complement wrap predicate."""
+    a = a.to(torch.int32)
+    b = b.to(torch.int32)
+    s = a + b
+    return s, ((a ^ s) & (b ^ s)) < 0
+
+
+def descale(xf: torch.Tensor, scale) -> torch.Tensor:
+    """xf / scale; two exact half-exponent ldexp steps when scale is a
+    power of two (its exponent read exactly from frexp), plain division
+    otherwise."""
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=xf.device)
+    xf = xf.to(torch.float32)
+    mant, ex = torch.frexp(scale)
+    e = ex.to(torch.int32) - 1
+    exact = _ldexp2(xf, -e)
+    return torch.where(mant == 0.5, exact, xf / scale)
+
+
+def dequantize(q: torch.Tensor, scale) -> torch.Tensor:
+    return descale(q.to(torch.float32), scale)
+
+
+def limb_split(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q == hi * 2^15 + lo with lo in [0, 2^15): arithmetic shift + mask."""
+    q = q.to(torch.int32)
+    return q >> LIMB_SHIFT, q & ((1 << LIMB_SHIFT) - 1)
+
+
+def limbs_canonical(hi: torch.Tensor, lo: torch.Tensor):
+    """Carry lo's bits above LIMB_SHIFT into hi (the Euclidean pair)."""
+    return hi + (lo >> LIMB_SHIFT), lo & ((1 << LIMB_SHIFT) - 1)
+
+
+def bin_ref_exponent(max_abs) -> torch.Tensor:
+    """Window anchor: e with max_abs * 2^-e in [0.5, 1)."""
+    m = torch.clamp(torch.as_tensor(max_abs, dtype=torch.float32),
+                    min=2.0 ** -126)
+    return torch.frexp(m)[1].to(torch.int32)
+
+
+def bin_digits(x: torch.Tensor, e_ref, *, bits: int = BIN_BITS,
+               num: int = NUM_BINS):
+    """Yield the ``num`` f32 digit planes of ``bin_split`` in order (each
+    an integer-valued f32 of magnitude <= 2^bits), so callers can write
+    them straight into a preallocated domain."""
+    v = _ldexp2(x.to(torch.float32), -_i32(e_ref, x))
+    radix = float(1 << bits)
+    for _ in range(num):
+        s = v * radix
+        d = torch.round(s)
+        v = s - d                     # exact: both multiples of ulp(s)
+        yield d
+
+
+def bin_split(x: torch.Tensor, e_ref, *, bits: int = BIN_BITS,
+              num: int = NUM_BINS) -> torch.Tensor:
+    """(num, *x.shape) int32 exponent-bin digits (Dekker extraction)."""
+    return torch.stack([to_i32(d) for d in
+                        bin_digits(x, e_ref, bits=bits, num=num)])
+
+
+def _bin_carry_resolve(bins: torch.Tensor, bits: int) -> list:
+    """Canonicalize (num, ...) int32 digit bins: each digit beyond
+    +-2^(bits-1) carries into the next-more-significant bin."""
+    num = bins.shape[0]
+    resolved = [bins[k] for k in range(num)]
+    half = 1 << (bits - 1)
+    for k in range(num - 1, 0, -1):
+        c = (resolved[k] + half) >> bits
+        resolved[k] = resolved[k] - (c << bits)
+        resolved[k - 1] = resolved[k - 1] + c
+    return resolved
+
+
+def bin_combine(bins: torch.Tensor, e_ref, *,
+                bits: int = BIN_BITS) -> torch.Tensor:
+    """(num, ...) int32 bins -> f32: integer carry-resolve, then a
+    least-significant-first compensated combine."""
+    e_ref = _i32(e_ref, bins)
+    num = bins.shape[0]
+    resolved = _bin_carry_resolve(bins, bits)
+    acc = torch.zeros(bins.shape[1:], dtype=torch.float32,
+                      device=bins.device)
+    comp = torch.zeros_like(acc)
+    for k in range(num - 1, -1, -1):
+        term = _ldexp2(resolved[k].to(torch.float32),
+                       e_ref - (k + 1) * bits)
+        acc, e = two_sum(acc, term)
+        comp = comp + e
+    return acc + comp
+
+
+def limbs_resolve3_binned(hi: torch.Tensor, lo: torch.Tensor,
+                          rbins: torch.Tensor, scale, *,
+                          bits: int = RES_BIN_BITS) -> torch.Tensor:
+    """Resolve (hi, lo) limbs plus binned residual digits into f32: every
+    input to the float combine is a canonical integer, combined
+    least-significant-first through compensated two-sums."""
+    hi, lo = limbs_canonical(hi, lo)
+    num = rbins.shape[0]
+    resolved = _bin_carry_resolve(rbins, bits)
+    hsplit = 14                      # hi may need 31 bits: split it once
+    hih = hi >> hsplit
+    hil = hi & ((1 << hsplit) - 1)
+    acc = torch.zeros(hi.shape, dtype=torch.float32, device=hi.device)
+    cmp_ = torch.zeros_like(acc)
+    terms = [(resolved[k], -(k + 1) * bits) for k in range(num - 1, -1, -1)]
+    terms += [(lo, 0), (hil, LIMB_SHIFT), (hih, LIMB_SHIFT + hsplit)]
+    for quanta, shift in terms:
+        term = descale(_ldexp2(quanta.to(torch.float32), shift), scale)
+        acc, e = two_sum(acc, term)
+        cmp_ = cmp_ + e
+    return acc + cmp_

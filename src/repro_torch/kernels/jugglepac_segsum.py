@@ -1,0 +1,136 @@
+"""K1: the JugglePAC segmented streaming sum with the policy carry.
+
+The Hopper counterpart of the TPU kernel ``_segsum_policy_kernel``
+(``segsum_policy_pallas``, ``src/repro/kernels/jugglepac_segsum.py``).
+It takes a (N, W) stream already in the policy's domain and (N,) int32
+labels, cut into schedule blocks of ``block_rows`` rows, and returns the
+policy's carry tuple, not yet finalized: each block's (S, W)
+contribution folds into the carry strictly in block order.
+
+Two implementations of one function live here:
+
+  * ``segsum_policy_cuda`` launches the CUDA kernel (``csrc/segsum.cu``)
+    on CUDA tensors and counts its launches in ``LAUNCHES``;
+  * ``segsum_policy_torch`` is its plain PyTorch version — the code path
+    the ``blocked`` executor runs — built from the very gather
+    (``program.block_contrib``) and fold (``Policy.update``) the ``ref``
+    executor runs block by block.
+
+The backend registry (``repro_torch.reduce.backends``) picks between
+them by device.  The kernel never falls back: a failed build or launch
+raises.
+
+The in-block order of the float tiers is pinned once, here and in
+``repro_torch.reduce.policy``, and both implementations follow it: the
+block's rows split into contiguous lanes (one lane for the dot form);
+within a lane each (segment, column) cell sums its leaves — the row's
+value where the row has that label, +0.0 elsewhere — by a pairwise tree
+over the lane's rows zero-padded to a power of two (leaf 2i + leaf 2i+1,
+level by level); the lane sums fold in lane order.  Only elementwise
+IEEE adds: no float atomics, matmul, ``torch.sum``, TF32 or FMA.  So the
+kernel and its plain version agree to the bit for every tier.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..reduce.policy import lane_bounds
+from ..reduce.program import block_contrib
+from . import ops
+
+#: launches of the K1 kernel, counted by ``segsum_policy_cuda``
+LAUNCHES = 0
+
+_TIERS = {"fast": 0, "compensated": 1, "exact": 2, "exact2": 3,
+          "procrastinate": 4}
+_IN_DTYPES = {"fast": torch.float32, "compensated": torch.float32,
+              "exact": torch.int32, "exact2": torch.float32,
+              "procrastinate": torch.int32}
+
+#: carry cells (S x W) a batch of gathered contributions may hold
+_CONTRIB_ELEMS = 1 << 24
+
+
+def segsum_policy_torch(values: torch.Tensor, ids: torch.Tensor,
+                        num_segments: int, *, policy, program=None,
+                        block_rows: int = 512, seg_offset: int = 0):
+    """The plain version: values (N, W) in the policy's domain with N a
+    multiple of ``block_rows``, ids (N,) int32 -> the carry tuple.
+    Gathers contributions in batches of blocks, then folds them one
+    block at a time, in order."""
+    n, w = values.shape
+    if n % block_rows:
+        raise ValueError(f"segsum_policy_torch: N={n} must be a multiple "
+                         f"of block_rows={block_rows}; pad in the caller")
+    nb = n // block_rows
+    vb = values.reshape(nb, block_rows, w)
+    ib = ids.to(torch.int32).reshape(nb, block_rows)
+    carry = policy.init(num_segments, w, device=values.device)
+    group = max(1, _CONTRIB_ELEMS // max(1, num_segments * w))
+    for g in range(0, nb, group):
+        contribs = block_contrib(vb[g:g + group], ib[g:g + group],
+                                 num_segments, policy, program,
+                                 seg_offset=seg_offset)
+        for c in contribs:
+            carry = policy.update(carry, c)
+    return carry
+
+
+def launch_shape(policy, num_segments: int, width: int, program=None):
+    """(col_tile, seg_tile, grid) of one K1 launch."""
+    d = width // policy.parts
+    int_lanes = policy.integer and program is not None \
+        and program.contrib == "lanes"
+    ct = ops.col_tile_for(d)
+    st = ops.seg_tile_for(num_segments, d, policy.parts, int_lanes=int_lanes)
+    grid = (-(-d // ct), -(-num_segments // st))
+    return ct, st, grid
+
+
+def segsum_policy_cuda(values: torch.Tensor, ids: torch.Tensor,
+                       num_segments: int, *, policy, program=None,
+                       block_rows: int = 512, seg_offset: int = 0):
+    """Launch K1: values (N, W) in the policy's domain, ids (N,) int32,
+    both contiguous CUDA tensors -> the carry tuple.  Any N: the rows
+    past N of the last block read as sentinel rows."""
+    global LAUNCHES
+    from . import _build
+    name = policy.name
+    if name not in _TIERS:
+        raise ValueError(f"the CUDA kernel implements the tiers "
+                         f"{sorted(_TIERS)}, not {name!r}")
+    if not (values.is_cuda and ids.is_cuda):
+        raise ValueError("segsum_policy_cuda needs CUDA tensors; got "
+                         f"values on {values.device}, ids on {ids.device}")
+    if values.dtype != _IN_DTYPES[name] or ids.dtype != torch.int32:
+        raise TypeError(f"{name}: values must be {_IN_DTYPES[name]} and "
+                        f"ids int32; got {values.dtype}, {ids.dtype}")
+    if values.ndim != 2 or ids.shape != (values.shape[0],):
+        raise ValueError(f"values must be (N, W) and ids (N,); got "
+                         f"{tuple(values.shape)}, {tuple(ids.shape)}")
+    if not (values.is_contiguous() and ids.is_contiguous()):
+        raise ValueError("segsum_policy_cuda needs contiguous tensors")
+    n, w = values.shape
+    if w % policy.parts:
+        raise ValueError(f"{name}: width {w} is not a multiple of its "
+                         f"{policy.parts} domain planes")
+    # the policy's init is the one source of the carry shapes and dtypes
+    carry = tuple(torch.empty(c.shape, dtype=c.dtype, device=values.device)
+                  for c in policy.init(num_segments, w, device="meta"))
+    if n == 0 or num_segments == 0 or w == 0:
+        return tuple(c.zero_() for c in carry)
+    lanes_form = program is not None and program.contrib == "lanes"
+    nl = len(lane_bounds(block_rows, program.lanes if lanes_form else 1)) - 1
+    ct, st, _ = launch_shape(policy, num_segments, w, program)
+    ptrs = [c.data_ptr() for c in carry] + [None] * (4 - len(carry))
+    lib = _build.load("segsum")
+    rc = lib.segsum_policy_launch(
+        _TIERS[name], int(lanes_form), values.data_ptr(), ids.data_ptr(),
+        *ptrs, n, block_rows, num_segments, seg_offset, w // policy.parts,
+        nl, st, ct, ops.CHUNK_ROWS,
+        torch.cuda.current_stream(values.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K1 launch failed for {name}: CUDA error {rc}")
+    LAUNCHES += 1
+    return carry

@@ -100,6 +100,10 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "faults: fault-injection robustness suite (tests/test_faults.py)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA kernels); "
+        "skips where torch.cuda.is_available() is False")
 
 
 def pytest_collection_modifyitems(config, items):

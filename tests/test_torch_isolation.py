@@ -1,0 +1,91 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` never
+load JAX or the reference package, and the front door never falls back
+to the CPU on its own."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LOADED", len([n for n in sys.modules if n.startswith("repro_torch")]))
+print("BAD", bad)
+"""
+
+
+def test_importing_every_module_loads_no_jax_or_reference():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    r = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=REPO,
+                       capture_output=True, text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = dict(line.split(" ", 1) for line in r.stdout.strip().splitlines())
+    assert out["BAD"] == "[]"
+    assert int(out["LOADED"]) >= 15
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0], node.lineno
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value).split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
+                         + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_reference_import_in_source(path):
+    bad = [(root, line) for root, line in _imported_roots(path)
+           if root in FORBIDDEN]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_reduce_without_device_raises_when_cuda_is_absent():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None runs there")
+    import repro_torch
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.reduce(torch.ones(4))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.resolve_device("cuda")
+    assert repro_torch.resolve_device("cpu").type == "cpu"
+
+
+def test_chip_smoke_fails_without_cuda_and_prints_no_result(tmp_path):
+    """Without a GPU the chip smoke exits nonzero before any result line;
+    alone in a directory (no ``src/``) it fails too."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the smoke would run")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                       cwd=REPO, capture_output=True, text=True, env=env,
+                       timeout=300)
+    assert r.returncode != 0 and '"ok"' not in r.stdout
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((REPO / "chip_smoke.py").read_text())
+    r = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
+                       capture_output=True, text=True, env=env, timeout=300)
+    assert r.returncode != 0 and '"ok"' not in r.stdout
