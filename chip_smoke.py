@@ -1,29 +1,49 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port: ``python3 chip_smoke.py``.
 
-Drives the port's main path, ``repro_torch.reduce(values, segment_ids=,
-num_segments=1024, policy=p)``, once per accuracy tier on one NVIDIA GPU,
-at N=4,000,000 rows x D=64 f32 in 1,024 back-to-back variable-length sets
-(about 1% of rows labeled ``OUT_OF_RANGE_LABEL``, magnitudes spread over
-2^-20..2^20, all drawn from ``--seed``).  Phases, in order; any failure
-exits nonzero:
+Drives the port's two paths on one NVIDIA GPU.  Slice 1, the reduce
+front door: ``repro_torch.reduce(values, segment_ids=, num_segments=1024,
+policy=p)`` once per accuracy tier, at N=4,000,000 rows x D=64 f32 in
+1,024 back-to-back variable-length sets (about 1% of rows labeled
+``OUT_OF_RANGE_LABEL``, magnitudes spread over 2^-20..2^20).  Slice 2,
+the kernel entry points ``repro_torch.kernels.flash_decode``,
+``flash_decode_paged`` and ``intac_accum``, at mixtral-8x22b's attention
+width (H=48, K=8, d=128) over a decode batch of 16 requests x 32,768 f32
+KV rows, and at N=32,768 x D=6,144 for INTAC.  All data is drawn from
+``--seed``.  Phases, in order; any failure exits nonzero:
 
 1. device — the card's name and power limit, as nvidia-smi prints them;
-2. build  — every CUDA source of the path, one nvcc each, in parallel;
-3. kernel against its plain version — K1 and ``segsum_policy_torch`` on
-   the card, bitwise, for 5 tiers x {dot, lanes} x block sizes
-   {64, 128, 512} at N=65,536, D=16, S=48, plus exact2 at S=4,096, D=64
-   (many label tiles);
-4. main path — each tier's result against a float64 segment sum on the
-   card, within the tier's documented bound; K1 launched in every tier's
-   run (launch counts reset just before the call, read just after);
-   integer tiers bitwise across block sizes 128 and 512; ``op="mean"``
-   and ``op="moments"`` on exact2;
-5. timings — CUDA events, warm-up then median: end-to-end ``reduce``, K1,
-   its plain version, and one PyTorch library call where one computes
-   the same function; the least time the card could take (bytes moved
-   over 3.35 TB/s, or operations over 67 T/s, whichever is larger).
+2. build  — every CUDA source, one nvcc each, in parallel;
+3. K1 against its plain version — bitwise, for 5 tiers x {dot, lanes} x
+   block sizes {64, 128, 512} at N=65,536, D=16, S=48, plus exact2 at
+   S=4,096, D=64 (many label tiles);
+4. reduce main path — each tier's result against a float64 segment sum
+   on the card, within the tier's documented bound; K1 launched in every
+   tier's run (launch counts reset just before the call, read just
+   after); integer tiers bitwise across block sizes 128 and 512;
+   ``op="mean"`` and ``op="moments"`` on exact2;
+5. reduce timings — ``reduce``, K1, its plain version, ``index_add_``;
+6. decode, kernel against plain — K2, K3 and K4 bitwise against their
+   plain versions at (B, H, K, S, d) = (3, 8, 2, 1,000, 64) and at full
+   width;
+7. decode, full width — ``flash_decode`` (block_kv=512, window None and
+   4,096), ``partial_chunks=4`` and ``flash_decode_paged`` (ps=256, a
+   shuffled ``PagedKVPool``), each within its stated bound of a float64
+   materialized softmax and launching its kernel once (counts reset just
+   before each call, read just after); the paged result bitwise equal to
+   ``flash_decode(block_kv=256)`` on the assembled cache;
+8. INTAC — ``intac_accum`` launching K5 once, bitwise against its plain
+   version, against an int64 column sum of the quantized values, and
+   across block_rows 64 and 256;
+9. decode and INTAC timings — each kernel and its wrapper, the plain
+   version, and one PyTorch call computing the same function where there
+   is one (``scaled_dot_product_attention`` for K2).
 
+Times are CUDA-event medians after a warm-up (plain versions: one
+host-clock run); the bound is the least time the card could take, bytes
+moved over 3.35 TB/s or operations over 67 T/s, whichever is larger,
+counting only what this run's data needs (the rows of kept labels; the
+KV rows below each request's length; distinct pages).
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script exits nonzero and prints no result.
@@ -54,6 +74,14 @@ REPS = 5
 #: exact2's mean against the float64 mean, relative: one ulp of the
 #: exact2 sum and half an ulp of the f32 division, rounded up to 2 ulp
 MEAN_REL = 2.0 ** -22
+#: decode width: mixtral-8x22b's attention (src/repro/configs/
+#: mixtral_8x22b.py: d_model=6144, n_heads=48, n_kv_heads=8, window=4096)
+HEADS, KV_HEADS, HEAD_DIM, WINDOW = 48, 8, 6144 // 48, 4096
+#: decode batch: requests x KV rows per request (f32 K+V: 4.29 GB)
+BATCH, KV_ROWS = 16, 32_768
+#: INTAC: the wrapper's row limit x mixtral's d_model; magnitudes < 2^5
+#: and scale 2^24 keep |x| * scale < 2^29, inside intac_accum.py's contract
+INTAC_ROWS, INTAC_COLS, INTAC_SCALE = 1 << 15, 6144, 2.0 ** 24
 
 
 def fail(msg: str) -> int:
@@ -142,6 +170,356 @@ def tier_bound(tier, ref, absum, cnt, blocks_per_seg, ctx, block):
     if tier == "fast":                  # tree, lanes and carry adds
         depth += blocks_per_seg[:, None]
     return ulp + err64 + depth * U * absum
+
+
+def check(ok: bool, msg: str) -> None:
+    """Fail the phase (the script exits nonzero, with no result line)."""
+    if not ok:
+        raise RuntimeError(msg)
+
+
+def host_ms(fn):
+    """Milliseconds of one ``fn()`` on the host clock, synchronized; and
+    its result."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def same(a, b):
+    """Bitwise equality of two tensors or tuples of them, and the largest
+    absolute difference."""
+    import torch
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    ok = all(torch.equal(x, y) for x, y in zip(a, b))
+    err = max(float((x.double() - y.double()).abs().max())
+              for x, y in zip(a, b))
+    return ok, err
+
+
+def shuffled_pool(kv_len, ps, nb, kheads, d, gen, dev):
+    """A PagedKVPool filled with random pages through interleaved
+    alloc/free, so each request's pages lie shuffled in the pool: a churn
+    request is allocated before each request and freed after the next
+    one.  Returns the K and V pools, the (B, nb) int32 page tables, and
+    the logically assembled dense K and V (B, nb * ps, K, d)."""
+    import torch
+    from repro_torch.serve import PagedKVPool
+    b = len(kv_len)
+    pool = PagedKVPool(num_pages=b * nb + 4, page_size=ps)
+    for bi in range(b):
+        pool.alloc(1000 + bi, 2 * ps)
+        pool.alloc(bi, int(kv_len[bi]))
+        if bi:
+            pool.free(1000 + bi - 1)
+    tables = torch.tensor(
+        [pool.page_table(bi, max_pages=nb).tolist() for bi in range(b)],
+        dtype=torch.int32, device=dev)
+    shape = (pool.num_pages, ps, kheads, d)
+    kp = torch.randn(shape, generator=gen, device=dev)
+    vp = torch.randn(shape, generator=gen, device=dev)
+    idx = tables.clamp_min(0).long()
+    k = kp[idx].reshape(b, nb * ps, kheads, d)
+    v = vp[idx].reshape(b, nb * ps, kheads, d)
+    return kp, vp, tables, k, v
+
+
+def decode_f64(q, k, v, kv_len, window, sm_scale, block, calls):
+    """The float64 materialized softmax attention, on the card, one
+    request at a time, and each output's error bound for an f32 online
+    softmax with ``calls`` rescale steps (blocks, plus partial merges).
+
+    Per (b, h): E = max over valid rows j of
+    (ceil(log2 d) + 2) u * sm_scale * sum_c |q_c k_jc| + 2u (|s_j| +
+    |s_j - max s|)  (the score and its exponent's rounding), plus
+    (8 + ceil(log2 block) + 6 * calls) u (exp within 2 ulp, products,
+    trees, the per-step rescale and update roundings).  Then
+    |o - o64| <= 2 E (sum_j p_j |v_jc| + |o64_c|), u = 2^-24, the factor
+    2 covering second-order terms and the float64 reference's own error.
+    """
+    import torch
+    from repro_torch.kernels import ops
+    b, h, d = q.shape
+    s_len, kheads = k.shape[1], k.shape[2]
+    g = h // kheads
+    ld = math.ceil(math.log2(d))
+    lb = math.ceil(math.log2(block))
+    bias = ops.length_bias(kv_len, s_len, window, q.device).double()
+    o64 = torch.empty((b, h, d), dtype=torch.float64, device=q.device)
+    bound = torch.empty_like(o64)
+    for bi in range(b):
+        qb = q[bi].double().reshape(kheads, g, d)
+        kb, vb = k[bi].double(), v[bi].double()
+        s = torch.einsum("kgd,skd->kgs", qb, kb) * sm_scale + bias[bi]
+        ab = torch.einsum("kgd,skd->kgs", qb.abs(), kb.abs()) * sm_scale
+        p = torch.softmax(s, -1)
+        o = torch.einsum("kgs,skd->kgd", p, vb)
+        pv = torch.einsum("kgs,skd->kgd", p, vb.abs())
+        e = (ld + 2) * U * ab + 2 * U * (s.abs() + (s - s.amax(-1, True))
+                                         .abs())
+        e = torch.where(bias[bi] == 0, e, torch.zeros_like(e)).amax(-1)
+        e = e + (8 + lb + 6 * calls) * U
+        o64[bi] = o.reshape(h, d)
+        bound[bi] = (2 * e[..., None] * (pv + o.abs())).reshape(h, d)
+        del kb, vb, s, ab, p
+    return o64, bound
+
+
+def decode_phases(seed, dev, smi):
+    """Phases 6, 7 and the decode half of 9; returns the kernel entries
+    of K2, K3 and K4."""
+    import importlib
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 2)
+
+    # 6. kernel against plain at a small size
+    b, h, kh, s_len, d = 3, 8, 2, 1000, 64
+    q = torch.randn((b, h, d), generator=gen, device=dev)
+    kv_len = torch.tensor([0, 517, 1000], device=dev)
+    kp, vp, tables, k, v = shuffled_pool(kv_len, 128, 8, kh, d, gen, dev)
+    k, v = k[:, :s_len].contiguous(), v[:, :s_len].contiguous()
+    sc = d ** -0.5
+    for window in (None, 200):
+        bias = ops.length_bias(kv_len, s_len, window, dev)
+        for block in (256, 512):
+            cases = [("dense", fd.flash_decode_cuda, fd.flash_decode_torch,
+                      {"block_kv": block})]
+            cases += [("partial", fd.flash_decode_partial_cuda,
+                       fd.flash_decode_partial_torch,
+                       {"block_kv": block, "per": per}) for per in (1, 3)]
+            for name, kern, plain, kw in cases:
+                ok, err = same(kern(q, k, v, bias, sm_scale=sc, **kw),
+                               plain(q, k, v, bias, sm_scale=sc, **kw))
+                print(f"check {name:7s} (3, 8, 2, 1000, 64) window="
+                      f"{window} {kw}: max|kernel-plain|={err:g} "
+                      f"{'bitwise' if ok else 'DIFFER'}", flush=True)
+                check(ok, f"{name} kernel differs from its plain version")
+    pbias = ops.length_bias(kv_len, 8 * 128, None, dev)
+    ok, err = same(fd.flash_decode_paged_cuda(q, kp, vp, pbias, tables,
+                                              sm_scale=sc),
+                   fd.flash_decode_paged_torch(q, kp, vp, pbias, tables,
+                                               sm_scale=sc))
+    print(f"check paged   (3, 8, 2, 1024, 64) ps=128: max|kernel-plain|="
+          f"{err:g} {'bitwise' if ok else 'DIFFER'}", flush=True)
+    check(ok, "paged kernel differs from its plain version")
+    del q, kp, vp, k, v
+
+    # full width: a shuffled pool at ps=256 and its assembled dense cache
+    b, h, kh, s_len, d = BATCH, HEADS, KV_HEADS, KV_ROWS, HEAD_DIM
+    sc = d ** -0.5
+    ps, nb = 256, KV_ROWS // 256
+    q = torch.randn((b, h, d), generator=gen, device=dev)
+    kv_len = torch.randint(1, s_len + 1, (b,), generator=gen, device=dev)
+    kv_len[3] = 0
+    kp, vp, tables, k, v = shuffled_pool(kv_len, ps, nb, kh, d, gen, dev)
+    bias = ops.length_bias(kv_len, s_len, None, dev)
+    print(f"decode: B={b} H={h} K={kh} d={d} S={s_len} f32, K+V "
+          f"{2 * k.numel() * 4 / 1e9:.3f} GB, pool {kp.shape[0]} pages of "
+          f"{ps}, kv_len {kv_len.tolist()}", flush=True)
+
+    # 6. kernel against plain at full width (the plain runs are timed)
+    per = 16
+    full = {
+        "dense": (lambda: fd.flash_decode_cuda(q, k, v, bias, sm_scale=sc,
+                                               block_kv=512),
+                  lambda: fd.flash_decode_torch(q, k, v, bias, sm_scale=sc,
+                                                block_kv=512)),
+        "partial": (lambda: fd.flash_decode_partial_cuda(
+                        q, k, v, bias, sm_scale=sc, block_kv=512, per=per),
+                    lambda: fd.flash_decode_partial_torch(
+                        q, k, v, bias, sm_scale=sc, block_kv=512, per=per)),
+        "paged": (lambda: fd.flash_decode_paged_cuda(q, kp, vp, bias, tables,
+                                                     sm_scale=sc),
+                  lambda: fd.flash_decode_paged_torch(q, kp, vp, bias,
+                                                      tables, sm_scale=sc)),
+    }
+    plain_ms, errs = {}, {}
+    for name, (kern, plain) in full.items():
+        plain_ms[name], want = host_ms(plain)
+        ok, errs[name] = same(kern(), want)
+        print(f"check {name:7s} full width: max|kernel-plain|="
+              f"{errs[name]:g} {'bitwise' if ok else 'DIFFER'}; plain "
+              f"{plain_ms[name]:.1f} ms", flush=True)
+        check(ok, f"{name} kernel differs from its plain version at full "
+                  "width")
+        del want
+    torch.cuda.empty_cache()
+
+    # 7. the main path: the public wrappers, counts reset around each call
+    launches = {}
+
+    def drive(mode, fn):
+        for key in fd.LAUNCHES:
+            fd.LAUNCHES[key] = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts = dict(fd.LAUNCHES)
+        check(counts[mode] == 1 and sum(counts.values()) == 1,
+              f"{mode}: expected one launch of its kernel, got {counts}")
+        launches[mode] = counts[mode]
+        return out
+
+    nbk = s_len // 512
+    runs = [
+        ("dense", "window=None", None, 512, nbk,
+         lambda: ops.flash_decode(q, k, v, kv_len, sm_scale=sc,
+                                  block_kv=512)),
+        ("dense", f"window={WINDOW}", WINDOW, 512, nbk,
+         lambda: ops.flash_decode(q, k, v, kv_len, sm_scale=sc,
+                                  window=WINDOW, block_kv=512)),
+        ("partial", "partial_chunks=4", None, 512, nbk + 4,
+         lambda: ops.flash_decode(q, k, v, kv_len, sm_scale=sc,
+                                  block_kv=512, partial_chunks=4)),
+        ("paged", "paged ps=256", None, ps, nb,
+         lambda: ops.flash_decode_paged(q, kp, vp, tables, kv_len,
+                                        sm_scale=sc)),
+    ]
+    outs = {}
+    for mode, label, window, block, calls, fn in runs:
+        out = drive(mode, fn)
+        o64, bound = decode_f64(q, k, v, kv_len, window, sc, block, calls)
+        err = (out.double() - o64).abs()
+        worst = float((err / bound).max())
+        finite = bool(torch.isfinite(out).all())
+        print(f"main {label:16s}: launches={launches[mode]} shape {tuple(out.shape)} "
+              f"max|out-f64|={float(err.max()):.4g} max err/bound="
+              f"{worst:.4f}", flush=True)
+        check(out.shape == (b, h, d) and finite and worst <= 1.0,
+              f"{label}: outside its bound of float64 (err/bound {worst})")
+        outs[label] = out
+        del o64, bound, err
+    dense256 = drive("dense", lambda: ops.flash_decode(
+        q, k, v, kv_len, sm_scale=sc, block_kv=ps))
+    ok, err = same(outs["paged ps=256"], dense256)
+    print(f"main paged vs flash_decode(block_kv=256): max|diff|={err:g} "
+          f"{'bitwise' if ok else 'DIFFER'}", flush=True)
+    check(ok, "paged result differs from flash_decode(block_kv=256)")
+    del outs, dense256
+
+    # 9. timings.  The bound counts what this run's data needs: request b
+    # needs its kv_len[b] rows (a masked row after a valid one adds
+    # exactly 0), all S rows where kv_len is 0 (its output is the mean of
+    # V over them); K4 reads each distinct pool page those rows lie in
+    # once (FREE_PAGE entries all clamp to page 0).
+    lens = torch.where(kv_len > 0, kv_len, torch.full_like(kv_len, s_len))
+    rows = int(lens.sum())
+    row_bytes = 2 * kh * d * 4
+    io_bytes = b * h * d * 4 * 2 + rows * 4           # q, out, bias rows
+    ops_ = rows * h * (4 * d + 1)
+    need = torch.arange(nb, device=dev)[None, :] < -(-lens[:, None] // ps)
+    pages = int(torch.unique(tables.clamp_min(0)[need]).numel())
+    print(f"bound: {rows} of {b * s_len} KV rows needed; paged: {pages} "
+          f"distinct pages of {ps} rows", flush=True)
+    chunks = -(-nbk // per)
+    sdpa = None
+    major_minor = tuple(int(x) for x in
+                        torch.__version__.split("+")[0].split(".")[:2])
+    if major_minor >= (2, 5):          # enable_gqa arrived in torch 2.5
+        k4 = k.permute(0, 2, 1, 3).contiguous()
+        v4 = v.permute(0, 2, 1, 3).contiguous()
+        mask = bias[:, None, None, :]
+        q4 = q[:, :, None, :]
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q4, k4, v4, attn_mask=mask, scale=sc, enable_gqa=True)
+    timed = {
+        "dense": (full["dense"][0],
+                  lambda: ops.flash_decode(q, k, v, kv_len, sm_scale=sc,
+                                           block_kv=512),
+                  rows * row_bytes + io_bytes, sdpa, 72),
+        "partial": (full["partial"][0],
+                    lambda: ops.flash_decode(q, k, v, kv_len, sm_scale=sc,
+                                             block_kv=512,
+                                             partial_chunks=4),
+                    rows * row_bytes + io_bytes
+                    + chunks * b * h * (d + 2) * 4, None, 92),
+        "paged": (full["paged"][0],
+                  lambda: ops.flash_decode_paged(q, kp, vp, tables, kv_len,
+                                                 sm_scale=sc),
+                  pages * ps * row_bytes + io_bytes + int(need.sum()) * 4,
+                  None, 117),
+    }
+    entries = []
+    for name, (kern, wrap, bytes_, lib, line) in timed.items():
+        kern_ms = cuda_ms(kern, REPS)
+        wrap_ms = cuda_ms(wrap, REPS)
+        lib_ms = None if lib is None else cuda_ms(lib, REPS)
+        lib_note = "n/a"
+        if lib is not None:
+            lib_err = float((lib()[:, :, 0].double()
+                             - kern().double()).abs().max())
+            lib_note = f"{lib_ms:.3f} ms (max|sdpa-kernel|={lib_err:.3g})"
+        bound_ms = max(bytes_ / HBM_BYTES_PER_S, ops_ / FP32_OPS_PER_S) * 1e3
+        print(f"time {name:7s}: kernel {kern_ms:.3f} ms | wrapper "
+              f"{wrap_ms:.3f} ms | bound {bound_ms:.3f} ms "
+              f"({bytes_ / 1e9:.3f} GB) | plain {plain_ms[name]:.1f} ms | "
+              f"library {lib_note} | {smi}", flush=True)
+        entries.append({
+            "name": f"flash_decode_kernel<{name}>", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+            "replaces": f"src/repro/kernels/flash_decode.py:{line}",
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": kern_ms, "plain_ms": plain_ms[name], "bound_ms": bound_ms,
+            "bound_by": ("bytes" if bytes_ / HBM_BYTES_PER_S
+                         >= ops_ / FP32_OPS_PER_S else "operations"),
+            "library_ms": lib_ms})
+    del q, k, v, kp, vp, tables, bias
+    torch.cuda.empty_cache()
+    return entries
+
+
+def intac_phase(seed, dev, smi):
+    """Phase 8 and the INTAC half of 9; returns K5's kernel entry."""
+    import importlib
+    import torch
+    from repro_torch.kernels import ops
+    ia = importlib.import_module("repro_torch.kernels.intac_accum")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 3)
+    n, d, scale = INTAC_ROWS, INTAC_COLS, INTAC_SCALE
+    mag = torch.randint(-12, 4, (n, d), generator=gen, device=dev)
+    x = (torch.randn((n, d), generator=gen, device=dev)
+         * torch.exp2(mag.to(torch.float32))).clamp(-31.0, 31.0)
+    del mag
+    ia.LAUNCHES = 0
+    limbs = ops.intac_accum(x, scale)
+    torch.cuda.synchronize()
+    launches = ia.LAUNCHES
+    check(launches == 1, f"intac_accum: expected one launch, got {launches}")
+    plain_ms, plain = host_ms(lambda: ia.intac_accum_torch(x, scale))
+    q64 = torch.round(x * scale).to(torch.int64).sum(0)
+    ok_plain, err = same(limbs, plain)
+    ok_int = torch.equal(limbs[0].long() * 32768 + limbs[1].long(), q64)
+    ok_blk = torch.equal(ops.intac_accum(x, scale, block_rows=64), limbs)
+    print(f"intac N={n} D={d} scale 2^{int(math.log2(scale))}: launches="
+          f"{launches} shape {tuple(limbs.shape)}; kernel vs plain "
+          f"{'bitwise' if ok_plain else 'DIFFER'}, vs int64 column sum "
+          f"{'bitwise' if ok_int else 'DIFFER'}, block_rows 64 vs 256 "
+          f"{'bitwise' if ok_blk else 'DIFFER'}", flush=True)
+    check(ok_plain and ok_int and ok_blk, "INTAC check")
+    kern_ms = cuda_ms(lambda: ia.intac_accum_cuda(x, scale), REPS)
+    wrap_ms = cuda_ms(lambda: ops.intac_accum(x, scale), REPS)
+    bytes_ = n * d * 4 + 2 * d * 4
+    ops_ = 8 * n * d
+    bound_ms = max(bytes_ / HBM_BYTES_PER_S, ops_ / FP32_OPS_PER_S) * 1e3
+    print(f"time intac  : kernel {kern_ms:.3f} ms | wrapper {wrap_ms:.3f} "
+          f"ms | bound {bound_ms:.3f} ms ({bytes_ / 1e9:.3f} GB) | plain "
+          f"{plain_ms:.1f} ms | library n/a | {smi}", flush=True)
+    return {"name": "intac_accum_kernel", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/intac_accum.cu",
+            "replaces": "src/repro/kernels/intac_accum.py:26",
+            "launches": launches, "max_abs_err": err, "ms": kern_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": ("bytes" if bytes_ / HBM_BYTES_PER_S
+                         >= ops_ / FP32_OPS_PER_S else "operations"),
+            "library_ms": None}
 
 
 def main(argv=None) -> int:
@@ -325,8 +703,9 @@ def main(argv=None) -> int:
                 (s + 1, w), dtype=dom.dtype, device=dev).index_add_(
                     0, safe, dom), REPS)
         out_bytes = sum(c.numel() * 4 for c in kern)
-        bytes_ = n * (w + 1) * 4 + out_bytes
-        ops = n * w
+        kept = int((mids >= 0).sum())   # sentinel rows' values go unread
+        bytes_ = n * 4 + kept * w * 4 + out_bytes
+        ops = kept * w
         bound_ms = max(bytes_ / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
         print(f"time {tier:13s}: reduce {e2e:.3f} ms | K1 {kern_ms:.3f} ms, "
               f"{launches_of[tier]} launch(es)/call, grid "
@@ -346,6 +725,11 @@ def main(argv=None) -> int:
             "library_ms": lib_ms})
         del dom, kern, plain
         torch.cuda.empty_cache()
+
+    del vals, ids, ref, absum, cnt, blocks_per_seg
+    torch.cuda.empty_cache()
+    kernels += decode_phases(args.seed, dev, smi)
+    kernels.append(intac_phase(args.seed, dev, smi))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,10 +25,13 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("segsum",)
+SOURCES = ("segsum", "flash_decode", "intac_accum")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+#: shared memory one CUDA block may use on Hopper (227 KB); every kernel's
+#: launch shape is sized to it
+SMEM_BYTES = 232448
 
 #: per source: build seconds (0.0 when the library was already built)
 #: and the compiler's resource report (registers, shared memory, spills)
@@ -38,10 +41,16 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 _C = ctypes.c_int
 _P = ctypes.c_void_p
+_F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "segsum": ("segsum_policy_launch",
-               [_C, _C, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+               [_C, _C, _P, _P, _P, _P, _P, _P, _L,
                 _C, _C, _C, _C, _C, _C, _C, _C, _P]),
+    "flash_decode": ("flash_decode_launch",
+                     [_C, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _C, _C, _C, _C, _C, _C, _C, _C, _C, _C, _C, _F, _P]),
+    "intac_accum": ("intac_accum_launch", [_P, _F, _P, _L, _C, _C, _P]),
 }
 
 

@@ -1,4 +1,16 @@
-"""Public wrappers around K1 and the tiling rule it launches with.
+"""Public wrappers around the kernels, and K1's tiling rule.
+
+Each wrapper runs on the CUDA device unless the caller passes
+``device="cpu"`` (``repro_torch.resolve_device``): it moves its inputs
+there, and on a CUDA device it launches its kernel, on the CPU it runs the
+kernel's plain version.  Without CUDA, ``device=None`` raises.
+
+  * ``segment_sum``         K1 with the ``fast`` tier;
+  * ``intac_accum``         K5, exact fixed-point column sums;
+  * ``flash_decode``        K2 (or K3 with ``partial_chunks``), GQA decode
+    attention with length and sliding-window masks;
+  * ``flash_decode_paged``  K4, the same over a paged KV pool;
+  * ``length_bias``         the decode kernels' length/window mask.
 
 ``seg_tile_for`` is re-derived for Hopper.  The reference sized a label
 tile so that all carries of the tile fit an 8 MiB VMEM budget, one tile
@@ -13,10 +25,22 @@ y dimension, so one launch covers the whole label space.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-#: shared memory one CUDA block may use on Hopper (227 KB)
-SMEM_BYTES = 232448
+from .. import resolve_device
+from ..core.intac import LIMB_SHIFT
+from ._build import SMEM_BYTES
+# Both kernel modules load here, before the package exports the wrappers
+# of the same names (``repro_torch.kernels.intac_accum`` is this module's
+# function, as in the reference package).
+from .flash_decode import (NEG, flash_decode_cuda, flash_decode_paged_cuda,
+                           flash_decode_paged_torch,
+                           flash_decode_partial_cuda,
+                           flash_decode_partial_torch, flash_decode_torch)
+from .intac_accum import intac_accum_cuda, intac_accum_torch
+
 #: threads of one CUDA block: one carry cell (segment, column) each
 BLOCK_THREADS = 512
 #: raw columns per CUDA block: 16 consecutive floats, 64-byte row pieces
@@ -55,21 +79,122 @@ def seg_tile_for(num_segments: int, d: int, parts: int = 1, *,
 
 
 def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
-                num_segments: int, *, block_rows: int = 512) -> torch.Tensor:
+                num_segments: int, *, block_rows: int = 512,
+                device=None) -> torch.Tensor:
     """JugglePAC segmented sum with the ``fast`` tier: values (N, D) or
     (N,), ids (N,) -> (num_segments, D) f32.  Launches K1 on a CUDA
-    tensor; runs its plain version on a CPU tensor."""
+    device; runs its plain version on the CPU."""
     from ..reduce.backends import _pad_to_blocks, mask_out_of_range
     from ..reduce.policy import get_policy
     from .jugglepac_segsum import segsum_policy_cuda, segsum_policy_torch
+    dev = resolve_device(device)
+    values = torch.as_tensor(values, device=dev)
     squeeze = values.ndim == 1
     if squeeze:
         values = values[:, None]
     values = values.to(torch.float32)
-    ids = mask_out_of_range(segment_ids.to(values.device), num_segments)
+    ids = mask_out_of_range(torch.as_tensor(segment_ids, device=dev),
+                            num_segments)
     vb, ib, _ = _pad_to_blocks(values, ids, block_rows)
-    impl = segsum_policy_cuda if values.is_cuda else segsum_policy_torch
+    impl = segsum_policy_cuda if dev.type == "cuda" else segsum_policy_torch
     out = impl(vb.reshape(-1, values.shape[1]).contiguous(),
                ib.reshape(-1).contiguous(), num_segments,
                policy=get_policy("fast"), block_rows=block_rows)[0]
     return out[:, 0] if squeeze else out
+
+
+def intac_accum(values: torch.Tensor, scale, *, block_rows: int = 256,
+                device=None) -> torch.Tensor:
+    """Exact fixed-point accumulation: values (N, D), scale () -> int32
+    limbs (2, D); resolve with ``ref.limbs_to_float``.  N <= 2^15 keeps
+    each limb's sum inside int32 (with |x| * scale < 2^30)."""
+    dev = resolve_device(device)
+    values = torch.as_tensor(values, device=dev)
+    n, _ = values.shape
+    if n > (1 << LIMB_SHIFT):
+        raise ValueError("intac_accum: N > 2^15 would risk limb overflow; "
+                         "split the stream and limb_merge the results")
+    values = values.to(torch.float32).contiguous()
+    if dev.type == "cuda":
+        return intac_accum_cuda(values, scale, block_rows=block_rows)
+    return intac_accum_torch(values, scale)
+
+
+def length_bias(kv_len, s_len: int, window: Optional[int] = None,
+                device=None) -> torch.Tensor:
+    """The decode kernels' (B, S) f32 additive mask: 0 where
+    pos < kv_len (and, with a window, pos >= kv_len - window), -1e30
+    elsewhere."""
+    kv_len = torch.as_tensor(kv_len, device=device)[:, None]
+    pos = torch.arange(s_len, device=kv_len.device)[None, :]
+    valid = pos < kv_len
+    if window is not None:
+        valid &= pos >= kv_len - window
+    return torch.where(valid, 0.0, NEG).to(torch.float32).contiguous()
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 kv_len, *, sm_scale: float, window: Optional[int] = None,
+                 block_kv: int = 512, partial_chunks: Optional[int] = None,
+                 device=None) -> torch.Tensor:
+    """Batched GQA decode attention for one new token.
+
+    q (B, H, d); k, v (B, S, K, d) with H = K * G; kv_len (B,) valid
+    lengths.  ``window``: sliding-window size (valid positions are
+    ``pos >= kv_len - window``).  ``partial_chunks``: split the KV stream
+    into chunks of ceil(nb / partial_chunks) blocks, each emitting a raw
+    (m, l, o) partial (K3), merged by ``FlashAccumulator`` in the fixed
+    ``merge_tree``.  Returns (B, H, d) f32.
+    """
+    dev = resolve_device(device)
+    q, k, v = (torch.as_tensor(t, device=dev).to(torch.float32).contiguous()
+               for t in (q, k, v))
+    bias = length_bias(kv_len, k.shape[1], window, dev)
+    cuda = dev.type == "cuda"
+    if partial_chunks is not None and partial_chunks > 1:
+        from ..reduce.accumulator import FlashAccumulator, merge_tree
+        nb = -(-k.shape[1] // block_kv)
+        per = -(-nb // partial_chunks)
+        run = flash_decode_partial_cuda if cuda \
+            else flash_decode_partial_torch
+        m, l, o = run(q, k, v, bias, sm_scale=sm_scale, block_kv=block_kv,
+                      per=per)
+        acc = FlashAccumulator()
+        return acc.finalize(merge_tree(acc, [(m[c], l[c], o[c])
+                                             for c in range(m.shape[0])]))
+    run = flash_decode_cuda if cuda else flash_decode_torch
+    return run(q, k, v, bias, sm_scale=sm_scale, block_kv=block_kv)
+
+
+def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, page_tables, kv_len, *,
+                       sm_scale: float, device=None) -> torch.Tensor:
+    """Paged-gather GQA decode attention for one new token.
+
+    q (B, H, d); k_pages, v_pages (P, ps, K, d) — the shared pool
+    (``serve.PagedKVPool``); page_tables (B, nb) int32, ``FREE_PAGE``
+    padded (padded entries read page 0 and are masked by the length
+    bias); kv_len (B,) valid lengths.  Returns (B, H, d) f32, bitwise
+    equal to ``flash_decode`` with ``block_kv=ps`` on the logically
+    assembled cache.
+    """
+    if q.ndim != 3 or k_pages.ndim != 4:
+        raise ValueError(
+            "flash_decode_paged: expected q (B, H, d) and k_pages/v_pages "
+            f"(P, ps, K, d); got q {tuple(q.shape)}, k_pages "
+            f"{tuple(k_pages.shape)}")
+    page_tables = torch.as_tensor(page_tables)
+    if page_tables.ndim != 2 or page_tables.shape[0] != q.shape[0]:
+        raise ValueError(
+            "flash_decode_paged: page_tables must be (B, nb) matching "
+            f"q's batch {q.shape[0]}; got {tuple(page_tables.shape)}")
+    dev = resolve_device(device)
+    q, k_pages, v_pages = (
+        torch.as_tensor(t, device=dev).to(torch.float32).contiguous()
+        for t in (q, k_pages, v_pages))
+    tables = page_tables.to(device=dev, dtype=torch.int32).contiguous()
+    bias = length_bias(kv_len, tables.shape[1] * k_pages.shape[1],
+                       device=dev)
+    run = flash_decode_paged_cuda if dev.type == "cuda" \
+        else flash_decode_paged_torch
+    return run(q, k_pages, v_pages, bias, tables, sm_scale=sm_scale)

@@ -12,6 +12,8 @@ Three orthogonal knobs, as in the reference package:
 The module itself is callable: ``repro_torch.reduce(values, ...)``.
 """
 
+from .accumulator import (Accumulator, FlashAccumulator,  # noqa: F401
+                          merge_tree, scan_accumulate)
 from .algebra import (REDUCE_OPS, ReduceOp, cascade_poly_coeffs,  # noqa: F401
                       cascade_weights, fir_weights, get_op, poly_weights,
                       register_op)
@@ -45,4 +47,5 @@ __all__ = [
     "Backend", "BACKENDS", "register_backend", "get_backend",
     "select_backend", "select_local_backend", "mask_out_of_range",
     "interop",
+    "Accumulator", "FlashAccumulator", "merge_tree", "scan_accumulate",
 ]

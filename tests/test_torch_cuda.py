@@ -81,3 +81,119 @@ def test_reduce_runs_on_the_card_by_default(cuda):
                                    num_segments=40, policy=policy,
                                    backend="blocked")
         assert torch.equal(out, plain), policy
+
+
+# ---------------------------------------------------------------------------
+# K2-K5 against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _decode_inputs(seed, b, h, kh, s, d, device):
+    rng = np.random.RandomState(seed)
+    q = torch.tensor(rng.randn(b, h, d).astype(np.float32), device=device)
+    k = torch.tensor(rng.randn(b, s, kh, d).astype(np.float32),
+                     device=device)
+    v = torch.tensor(rng.randn(b, s, kh, d).astype(np.float32),
+                     device=device)
+    kv_len = rng.randint(0, s + 1, b)
+    kv_len[0] = 0                       # a request with no valid key
+    return q, k, v, torch.tensor(kv_len, device=device)
+
+
+def _fd():
+    import importlib
+    return importlib.import_module("repro_torch.kernels.flash_decode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 8, 2, 1000, 64, 256),
+                                   (2, 12, 2, 700, 128, 512),
+                                   (2, 4, 4, 300, 30, 16)],
+                         ids=["G4", "G6", "odd-d"])
+def test_cuda_flash_decode_bitwise_plain_version(shape, cuda):
+    """K2 and K3 (chunks of 1 and 3 blocks) to the bit of their plain
+    versions, window and masked rows included."""
+    from repro_torch.kernels import ops
+    fd = _fd()
+    b, h, kh, s, d, block = shape
+    q, k, v, kv_len = _decode_inputs(21, b, h, kh, s, d, cuda)
+    for window in (None, 200):
+        bias = ops.length_bias(kv_len, s, window)
+        want = fd.flash_decode_torch(q, k, v, bias, sm_scale=d ** -0.5,
+                                     block_kv=block)
+        got = fd.flash_decode_cuda(q, k, v, bias, sm_scale=d ** -0.5,
+                                   block_kv=block)
+        torch.cuda.synchronize()
+        assert torch.equal(want, got), (shape, window)
+        for per in (1, 3):
+            want = fd.flash_decode_partial_torch(
+                q, k, v, bias, sm_scale=d ** -0.5, block_kv=block, per=per)
+            got = fd.flash_decode_partial_cuda(
+                q, k, v, bias, sm_scale=d ** -0.5, block_kv=block, per=per)
+            torch.cuda.synchronize()
+            for a, c in zip(want, got):
+                assert torch.equal(a, c), (shape, window, per)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_bitwise_plain_and_dense(cuda):
+    """K4 to the bit of its plain version, and of K2 at block_kv == ps on
+    the logically assembled cache, from a shuffled pool."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import PagedKVPool
+    b, h, kh, d, ps, nb = 3, 8, 2, 64, 16, 6
+    q, k, v, kv_len = _decode_inputs(22, b, h, kh, nb * ps, d, cuda)
+    pool = PagedKVPool(num_pages=b * nb + 4, page_size=ps)
+    pool.alloc(99, 3 * ps)
+    for bi in range(b):
+        pool.alloc(bi, int(kv_len[bi]))
+        if bi == 0:
+            pool.free(99)
+    tables = torch.tensor(np.stack([pool.page_table(bi, max_pages=nb)
+                                    for bi in range(b)]), device=cuda)
+    kp = torch.randn((pool.num_pages, ps, kh, d), device=cuda)
+    vp = torch.randn((pool.num_pages, ps, kh, d), device=cuda)
+    idx = tables.clamp_min(0).long()
+    k_asm = kp[idx].reshape(b, nb * ps, kh, d)
+    v_asm = vp[idx].reshape(b, nb * ps, kh, d)
+    fd = _fd()
+    before = fd.LAUNCHES["paged"]
+    paged = ops.flash_decode_paged(q, kp, vp, tables, kv_len,
+                                   sm_scale=0.125)
+    dense = ops.flash_decode(q, k_asm, v_asm, kv_len, sm_scale=0.125,
+                             block_kv=ps)
+    plain = ops.flash_decode_paged(q.cpu(), kp.cpu(), vp.cpu(),
+                                   tables.cpu(), kv_len.cpu(),
+                                   sm_scale=0.125, device="cpu")
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["paged"] == before + 1
+    assert torch.equal(paged, dense)
+    bias = ops.length_bias(kv_len, nb * ps)
+    want = fd.flash_decode_paged_torch(q, kp, vp, bias, tables.int(),
+                                       sm_scale=0.125)
+    assert torch.equal(paged, want)
+    assert torch.allclose(paged.cpu(), plain, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_intac_bitwise_plain_and_int64(cuda):
+    import importlib
+    ia = importlib.import_module("repro_torch.kernels.intac_accum")
+    from repro_torch.kernels import ops
+    rng = np.random.RandomState(23)
+    x = torch.tensor((rng.randn(5000, 300) * 8).astype(np.float32),
+                     device=cuda)
+    before = ia.LAUNCHES
+    a = ops.intac_accum(x, 2.0 ** 20, block_rows=64)
+    c = ops.intac_accum(x, 2.0 ** 20)
+    torch.cuda.synchronize()
+    assert ia.LAUNCHES == before + 2
+    assert torch.equal(a, c)
+    assert torch.equal(a, ia.intac_accum_torch(x, 2.0 ** 20))
+    q = torch.round(x * 2.0 ** 20).to(torch.int64).sum(0)
+    assert torch.equal(a[0].long() * 32768 + a[1].long(), q)
+    # an empty stream launches nothing and counts nothing
+    for shape in ((0, 300), (5000, 0)):
+        e = ia.intac_accum_cuda(torch.zeros(shape, device=cuda), 2.0 ** 20)
+        assert e.shape == (2, shape[1]) and not e.any()
+    assert ia.LAUNCHES == before + 2

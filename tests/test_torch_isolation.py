@@ -73,6 +73,29 @@ def test_reduce_without_device_raises_when_cuda_is_absent():
     assert repro_torch.resolve_device("cpu").type == "cpu"
 
 
+@pytest.mark.parametrize("entry", ["segment_sum", "intac_accum",
+                                   "flash_decode", "flash_decode_paged"])
+def test_kernel_entry_points_without_device_raise_when_cuda_is_absent(entry):
+    """``device=None`` means the card for the kernel wrappers too, even on
+    CPU tensors; ``device="cpu"`` runs the plain version."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None runs there")
+    from repro_torch import kernels
+    q, k = torch.ones(1, 2, 4), torch.ones(1, 8, 1, 4)
+    args = {"segment_sum": (torch.ones(4, 2), torch.zeros(4, dtype=torch.int32), 1),
+            "intac_accum": (torch.ones(4, 2), 4.0),
+            "flash_decode": (q, k, k, torch.tensor([3])),
+            "flash_decode_paged": (q, k.reshape(2, 4, 1, 4),
+                                   k.reshape(2, 4, 1, 4),
+                                   torch.tensor([[1, 0]], dtype=torch.int32),
+                                   torch.tensor([5]))}[entry]
+    kw = {"sm_scale": 0.5} if entry.startswith("flash") else {}
+    fn = getattr(kernels, entry)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fn(*args, **kw)
+    assert fn(*args, device="cpu", **kw).device.type == "cpu"
+
+
 def test_chip_smoke_fails_without_cuda_and_prints_no_result(tmp_path):
     """Without a GPU the chip smoke exits nonzero before any result line;
     alone in a directory (no ``src/``) it fails too."""

@@ -117,11 +117,13 @@ def test_plain_k1_label_offset_matches_pallas_kernel(policy):
 
 def test_fast_segment_sum_matches_math_oracle():
     vals, ids = _stream(seed=3, n=1000)
-    got = ops.segment_sum(torch.tensor(vals), torch.tensor(ids), S)
+    got = ops.segment_sum(torch.tensor(vals), torch.tensor(ids), S,
+                          device="cpu")
     want = segsum_ref(torch.tensor(vals), torch.tensor(ids), S)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
                                atol=1e-5)
-    one = ops.segment_sum(torch.tensor(vals[:, 0]), torch.tensor(ids), S)
+    one = ops.segment_sum(torch.tensor(vals[:, 0]), torch.tensor(ids), S,
+                          device="cpu")
     assert one.shape == (S,)
     assert torch.equal(one, got[:, 0])
 
