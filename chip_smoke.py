@@ -16,7 +16,9 @@ KV rows, and at N=32,768 x D=6,144 for INTAC.  All data is drawn from
 2. build  — every CUDA source, one nvcc each, in parallel;
 3. K1 against its plain version — bitwise, for 5 tiers x {dot, lanes} x
    block sizes {64, 128, 512} at N=65,536, D=16, S=48, plus exact2 at
-   S=4,096, D=64 (many label tiles);
+   S=4,096, D=64 (many label tiles), plus fast and compensated x {dot,
+   lanes} x block sizes {96, 4,096} on a stream of back-to-back runs with
+   10% -0.0 values, one label all -0.0 and an all-sentinel block;
 4. reduce main path — each tier's result against a float64 segment sum
    on the card, within the tier's documented bound; K1 launched in every
    tier's run (launch counts reset just before the call, read just
@@ -135,6 +137,22 @@ def make_stream(n, d, s, seed, device):
     vals = torch.randn(n, d, generator=g, device=device) \
         * torch.exp2(mag.to(torch.float32))
     return vals.contiguous(), ids.contiguous()
+
+
+def runs_stream(n, d, s, seed, device, block):
+    """``make_stream`` with 10% of the values -0.0, every row of label 3
+    -0.0, and rows [block, 2 * block) all sentinel: a whole schedule
+    block with no label."""
+    import torch
+    from repro_torch.reduce import OUT_OF_RANGE_LABEL
+    vals, ids = make_stream(n, d, s, seed, device)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 7)
+    neg = torch.rand(n, d, generator=g, device=device) < 0.1
+    neg |= (ids == 3)[:, None]
+    vals = torch.where(neg, torch.full_like(vals, -0.0), vals)
+    ids[block:2 * block] = OUT_OF_RANGE_LABEL
+    return vals.contiguous(), ids
 
 
 def f64_reference(vals, ids, s):
@@ -562,20 +580,28 @@ def main(argv=None) -> int:
 
     # 3. K1 against its plain version, bitwise
     errs = {t: 0.0 for t in TIERS}
-    cases = [(t, c, b, 65536, 16, 48) for t in TIERS
+    cases = [(t, c, b, 65536, 16, 48, "sets") for t in TIERS
              for c in ("dot", "lanes") for b in (64, 128, 512)]
-    cases.append(("exact2", "lanes", 512, 65536, 64, 4096))
-    cases.append(("exact2", "dot", 512, 65536, 64, 4096))
-    for tier, contrib, block, n, d, s in cases:
-        vals, ids = make_stream(n, d, s, args.seed + 1, dev)
+    cases.append(("exact2", "lanes", 512, 65536, 64, 4096, "sets"))
+    cases.append(("exact2", "dot", 512, 65536, 64, 4096, "sets"))
+    cases += [(t, c, b, 65536, 16, 48, "runs") for t in ("fast", "compensated")
+              for c in ("dot", "lanes") for b in (96, 4096)]
+    for tier, contrib, block, n, d, s, stream in cases:
+        if stream == "sets":
+            vals, ids = make_stream(n, d, s, args.seed + 1, dev)
+        else:
+            vals, ids = runs_stream(n, d, s, args.seed + 1, dev, block)
         pol = get_policy(tier)
         dom, _ = pol.prepare(vals, n)
         prog = plan_program(pol, num_segments=s, domain_width=dom.shape[1],
                             block_size=block, contrib=contrib)
         kern = K.segsum_policy_cuda(dom, ids, s, policy=pol, program=prog,
                                     block_rows=block)
-        plain = K.segsum_policy_torch(dom, ids, s, policy=pol, program=prog,
-                                      block_rows=block)
+        pad = (-n) % block              # the kernel reads these as sentinels
+        plain = K.segsum_policy_torch(
+            torch.cat([dom, dom.new_zeros((pad, dom.shape[1]))]),
+            torch.cat([ids, ids.new_full((pad,), -1)]), s, policy=pol,
+            program=prog, block_rows=block)
         torch.cuda.synchronize()
         ok = all(torch.equal(a, b) for a, b in zip(kern, plain))
         err = max(float((a.double() - b.double()).abs().max())
@@ -583,7 +609,7 @@ def main(argv=None) -> int:
         errs[tier] = max(errs[tier], err)
         ct, st, grid = K.launch_shape(pol, s, dom.shape[1], prog)
         print(f"check {tier:13s} {contrib:5s} B={block:3d} N={n} D={d} "
-              f"S={s}: grid {grid[0]}x{grid[1]} (label tile {st}, "
+              f"S={s} {stream}: grid {grid[0]}x{grid[1]} (label tile {st}, "
               f"column tile {ct}) max|kernel-plain|={err:g} "
               f"{'bitwise' if ok else 'DIFFER'}", flush=True)
         if not ok:
@@ -678,6 +704,15 @@ def main(argv=None) -> int:
         call = lambda: K.segsum_policy_cuda(  # noqa: E731
             dom, mids, s, policy=pol, program=prog, block_rows=512)
         kern_ms = cuda_ms(call, REPS)
+        if tier == "fast":
+            # the same launch where no row holds a label: the label scan
+            # and the folds of +0 alone
+            none = torch.full_like(mids, -1)
+            scan_ms = cuda_ms(lambda: K.segsum_policy_cuda(
+                dom, none, s, policy=pol, program=prog, block_rows=512), REPS)
+            print(f"time fast K1 split: label scan alone {scan_ms:.3f} ms, "
+                  f"touched blocks {kern_ms - scan_ms:.3f} ms", flush=True)
+            del none
         _, st, grid = K.launch_shape(pol, s, w, prog)
         kern = call()
         pad = (-n) % 512

@@ -38,9 +38,27 @@
 // the dot form adds each cell's rows in a loop, the lane form scatters
 // with int32 atomics into shared memory.  Float contributions follow the
 // pinned order of policy.py: per lane, a pairwise tree over the lane's
-// rows zero-padded to a power of two; lanes folded in lane order.  Built
-// with --fmad=false and without fast-math: no contraction, no
-// flush-to-zero, no float atomics.
+// rows zero-padded to a power of two, where a row of another label is a
+// +0 leaf; lanes folded in lane order.  Built with --fmad=false and
+// without fast-math: no contraction, no flush-to-zero, no float atomics.
+//
+// The float tiers' tree.  A subtree whose rows all carry label s, or no
+// label of the tile (sentinels, padding, rows past N, other tiles' labels:
+// "wild" rows, +0 leaves for every label of the tile), sums for s to
+// exactly the unmasked tree of its rows with the wild values set to +0,
+// and for any other label to +0.  So a touched schedule block builds ONE
+// unmasked tree per column in shared memory, in chunks of up to
+// TREE_ROWS = 512 padded rows, and beside it one int per node: its pure
+// label, WILD or MIXED.  Each thread stages 16 consecutive rows of its
+// column, issuing all 32 loads (labels, values) before using any, and
+// sums tree levels 1-4 in registers; the levels above take one barrier
+// each.  Each thread then descends from the chunk's root for its own
+// label, into MIXED nodes only, left child first, merging a finished
+// right child with its left sibling on a register stack — the masked
+// tree's bits, with one node visited for a chunk of one set and about
+// 2 log2(C) at a set boundary, instead of C leaves.  Chunks are aligned
+// subtrees of the lane's tree, so the binary-counter stack (`push_leaf`,
+// `close_tree`) joins the chunk sums into the lane's sum.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,6 +70,20 @@ constexpr int COMPENSATED = 1;
 constexpr int EXACT = 2;
 constexpr int EXACT2 = 3;
 constexpr int PROCRASTINATE = 4;
+
+// The float tiers' tree: a chunk of at most TREE_ROWS padded rows, so at
+// most TREE_DEPTH left siblings wait on the descent's register stack.
+constexpr int TREE_ROWS = 512;
+constexpr int TREE_DEPTH = 9;
+// A node's label when no row below it carries a label of the tile, and
+// when rows of two or more of the tile's labels lie below it.
+constexpr int WILD = -1;
+constexpr int MIXED = -2;
+// Consecutive rows of one column a thread stages and sums in registers:
+// tree levels 0..GROUP_LOG of the chunk, written without a barrier.
+constexpr int GROUP_ROWS = 16;
+constexpr int GROUP_LOG = 4;
+static_assert(GROUP_ROWS == 1 << GROUP_LOG, "a group is a subtree");
 
 template <int TIER> struct Tier;
 template <> struct Tier<FAST> {
@@ -87,7 +119,8 @@ struct Args {
   int lanes;            // float lane count (1 = dot form)
   int seg_tile;         // labels per CUDA block
   int col_tile;         // raw columns per CUDA block
-  int chunk_rows;       // rows staged in shared memory at a time
+  int chunk_rows;       // rows staged in shared memory at a time (float
+                        // tiers: the tree chunk, a power of two)
 };
 
 __device__ __forceinline__ int wadd(int a, int b) {
@@ -130,6 +163,88 @@ __device__ __forceinline__ void two_sum_update(float& acc, float& comp,
   comp = comp + e;
 }
 
+// First node of tree level h in a chunk of C leaves: level 0 holds the C
+// leaves, level h the C >> h sums of level h - 1's pairs.
+__device__ __forceinline__ int level_start(int C, int h) {
+  return 2 * C - ((2 * C) >> h);
+}
+
+__device__ __forceinline__ int pure_label(int a, int b) {
+  return a == b ? a : a == WILD ? b : b == WILD ? a : MIXED;
+}
+
+// A group's M nodes of one tree level, from registers to the chunk's
+// tree: the first m of them (fewer where the chunk is smaller than a
+// group).  Constant indices only, so v and lab stay in registers.
+template <int M>
+__device__ __forceinline__ void put_level(const float* v, const int* lab,
+                                          float* tval, int* tlab, int first,
+                                          int m, int ct, int tx) {
+#pragma unroll
+  for (int u = 0; u < M; ++u) {
+    if (u < m) {
+      tval[(first + u) * ct + tx] = v[u];
+      if (tx == 0) tlab[first + u] = lab[u];
+    }
+  }
+}
+
+// The next level up of a group's register tree: M sums of pairs.
+template <int M>
+__device__ __forceinline__ void pair_up(float* v, int* lab) {
+#pragma unroll
+  for (int u = 0; u < M; ++u) {
+    v[u] = v[2 * u] + v[2 * u + 1];
+    lab[u] = pure_label(lab[2 * u], lab[2 * u + 1]);
+  }
+}
+
+// The descent's stack of finished left siblings, top at r[0].  Only
+// constant indices, so it stays in registers.
+struct Pending {
+  float r[TREE_DEPTH];
+  __device__ __forceinline__ void push(float v) {
+#pragma unroll
+    for (int k = TREE_DEPTH - 1; k > 0; --k) r[k] = r[k - 1];
+    r[0] = v;
+  }
+  __device__ __forceinline__ float pop() {
+    const float v = r[0];
+#pragma unroll
+    for (int k = 0; k < TREE_DEPTH - 1; ++k) r[k] = r[k + 1];
+    return v;
+  }
+};
+
+// The chunk's masked tree sum for label s in column col: a node pure for
+// s gives its unmasked value, a node pure for another label (or wild)
+// gives +0, a MIXED node the sum of its children, left first.  Walks the
+// MIXED nodes depth first; a finished right child merges with its left
+// sibling, which waits on the stack.
+__device__ float descend(const int* tlab, const float* tval, int C,
+                         int log_c, int ct, int s, int col) {
+  Pending stk;
+  int h = log_c, i = 0;
+  for (;;) {
+    const int node = level_start(C, h) + i;
+    const int lab = tlab[node];
+    if (lab == MIXED) {           // only above level 0
+      --h;
+      i <<= 1;
+      continue;
+    }
+    float v = lab == s ? tval[node * ct + col] : 0.f;
+    while (i & 1) {
+      v = stk.pop() + v;
+      i >>= 1;
+      ++h;
+    }
+    if (h == log_c) return v;
+    stk.push(v);
+    ++i;
+  }
+}
+
 template <typename In>
 __device__ __forceinline__ int load_bits(const In* p);
 template <>
@@ -138,6 +253,112 @@ __device__ __forceinline__ int load_bits<float>(const float* p) {
 }
 template <>
 __device__ __forceinline__ int load_bits<int>(const int* p) { return *p; }
+
+// One touched schedule block's float contribution (rows [r0, r0 + B)) to
+// the carry cell (ty, tx); +0 for a thread outside the tile.  Every thread
+// of the CUDA block calls it: it synchronizes.  `present[s] == gen` marks
+// the labels of the chunk being summed; each chunk takes the next `gen`.
+__device__ float float_block(const Args& a, long long r0, int base,
+                             int tile_segs, int cols, int d0, bool active,
+                             int ty, int tx, int* present, int& gen,
+                             int* tlab, float* tval) {
+  const int B = a.block_rows, ct = a.col_tile;
+  const int col_threads = blockDim.x / ct;    // threads per column
+  const bool builds = ty < col_threads;       // stages and builds the tree
+  const long long n = a.n_rows, d = a.d;
+  const float* vals = static_cast<const float*>(a.values);
+  float stk[33];                   // chunk sums: at most 32 levels
+  float total = 0.f;
+  for (int k = 0; k < a.lanes; ++k) {
+    // lane k: rows [lo, lo + len) padded to L, cut into chunks of C
+    const int lo = static_cast<int>((static_cast<long long>(k) * B) / a.lanes);
+    const int len = static_cast<int>(
+        (static_cast<long long>(k + 1) * B) / a.lanes) - lo;
+    int L = 1;
+    while (L < len) L <<= 1;
+    const int C = min(L, a.chunk_rows);
+    const int log_c = 31 - __clz(C);
+    const int G = min(C, GROUP_ROWS), log_g = min(log_c, GROUP_LOG);
+    const long long row0 = r0 + lo;
+    int sp = 0;
+    unsigned cnt = 0u;
+    for (int c0 = 0; c0 < len; c0 += C) {
+      ++gen;
+      // Levels 0..log_g: thread (tx, ty) takes G consecutive rows of
+      // column tx.  A row with no label of the tile is WILD with value
+      // +0 (its loaded value is dropped); so are padding and rows past N.
+      for (int grp = ty; builds && grp < C / G; grp += col_threads) {
+        const int j0 = c0 + grp * G;
+        float v[GROUP_ROWS];
+        int lab[GROUP_ROWS];
+#pragma unroll
+        for (int u = 0; u < GROUP_ROWS; ++u) {    // every load before any use
+          const long long g = row0 + j0 + u;
+          lab[u] = base - 1;                        // no label of the tile
+          v[u] = 0.f;
+          if (u < G && j0 + u < len && g < n) {
+            lab[u] = a.ids[g];
+            if (tx < cols) v[u] = vals[g * d + d0 + tx];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < GROUP_ROWS; ++u) {
+          const int loc = lab[u] - base;
+          const bool mine =
+              static_cast<unsigned>(loc) < static_cast<unsigned>(tile_segs);
+          lab[u] = mine ? loc : WILD;
+          v[u] = mine ? v[u] : 0.f;
+          if (tx == 0 && mine) present[loc] = gen;
+        }
+        // GROUP_LOG = 4 levels, each pairing the one below, left first
+        const int first = grp * G;
+        put_level<16>(v, lab, tval, tlab, first, G, ct, tx);
+        if (log_g >= 1) {
+          pair_up<8>(v, lab);
+          put_level<8>(v, lab, tval, tlab, level_start(C, 1) + first / 2,
+                       G >> 1, ct, tx);
+        }
+        if (log_g >= 2) {
+          pair_up<4>(v, lab);
+          put_level<4>(v, lab, tval, tlab, level_start(C, 2) + first / 4,
+                       G >> 2, ct, tx);
+        }
+        if (log_g >= 3) {
+          pair_up<2>(v, lab);
+          put_level<2>(v, lab, tval, tlab, level_start(C, 3) + first / 8,
+                       G >> 3, ct, tx);
+        }
+        if (log_g >= 4) {
+          pair_up<1>(v, lab);
+          put_level<1>(v, lab, tval, tlab, level_start(C, 4) + first / 16,
+                       1, ct, tx);
+        }
+      }
+      __syncthreads();
+      // levels log_g + 1 .. log_c in shared memory, one barrier each
+      for (int h = log_g + 1; h <= log_c; ++h) {
+        const int nodes = C >> h;
+        const int src = level_start(C, h - 1), dst = level_start(C, h);
+        for (int i = ty; builds && i < nodes; i += col_threads) {
+          const int x = (src + 2 * i) * ct + tx;
+          tval[(dst + i) * ct + tx] = tval[x] + tval[x + ct];
+          if (tx == 0)
+            tlab[dst + i] =
+                pure_label(tlab[src + 2 * i], tlab[src + 2 * i + 1]);
+        }
+        __syncthreads();
+      }
+      float part = 0.f;
+      if (active && present[ty] == gen)
+        part = descend(tlab, tval, C, log_c, ct, ty, tx);
+      push_leaf(part, stk, sp, cnt);
+      __syncthreads();
+    }
+    const float part = close_tree(stk, sp, cnt);
+    total = k == 0 ? part : total + part;
+  }
+  return total;
+}
 
 template <int TIER, bool LANES>
 __global__ void segsum_policy_kernel(Args a) {
@@ -149,9 +370,14 @@ __global__ void segsum_policy_kernel(Args a) {
   const int ct = a.col_tile, st = a.seg_tile, cr = a.chunk_rows;
   int* flags = smem;                     // 32 schedule-block hit flags
   int* present = flags + 32;             // st: label present in the block
+                                         // (float tiers: in the chunk)
+  // integer tiers
   int* sid = present + st;               // cr: tile-local labels
   int* sval = sid + cr;                  // cr * P * ct staged values
   int* scratch = sval + cr * P * ct;     // st * P * ct int32 lane sums
+  // float tiers: a chunk's tree of 2 cr - 1 nodes
+  int* tlab = present + st;              // each node's pure label
+  float* tval = reinterpret_cast<float*>(tlab + 2 * cr - 1);  // x ct
 
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int tx = tid % ct, ty = tid / ct;
@@ -174,7 +400,9 @@ __global__ void segsum_policy_kernel(Args a) {
 #pragma unroll
   for (int k = 0; k < (P > 1 ? P : 1); ++k) bins[k] = 0;
 
-  float stk[33];
+  int gen = 0;                           // float tiers: the chunk count
+  if (!INT)
+    for (int s = tid; s < st; s += nthr) present[s] = 0;
 
   auto float_update = [&](float c) {
     if (TIER == FAST) {
@@ -207,57 +435,55 @@ __global__ void segsum_policy_kernel(Args a) {
         continue;
       }
       const long long r0 = (b0 + j) * B;
-      for (int s = tid; s < st; s += nthr) present[s] = 0;
-      if (INT && LANES) {
-        for (int e = tid; e < st * P * ct; e += nthr) scratch[e] = 0;
-      }
-      __syncthreads();
-      for (int r = tid; r < B; r += nthr) {
-        if (r0 + r < n) {
-          const int loc = a.ids[r0 + r] - base;
-          if (static_cast<unsigned>(loc) < static_cast<unsigned>(tile_segs))
-            present[loc] = 1;
-        }
-      }
-      __syncthreads();
-      const bool mine = active && present[ty];
-
-      int ctr[P];
-#pragma unroll
-      for (int p = 0; p < P; ++p) ctr[p] = 0;
-      // float lane state: lane k spans rows [k*B/lanes, (k+1)*B/lanes)
-      int lane_k = 0;
-      int lane_hi = B / a.lanes;
-      int sp = 0;
-      unsigned cnt = 0u;
-      float total = 0.f;
-
-      for (int c0 = 0; c0 < B; c0 += cr) {
-        const int rows = min(cr, B - c0);
-        for (int r = tid; r < rows; r += nthr) {
-          const long long g = r0 + c0 + r;
-          sid[r] = g < n ? a.ids[g] - base : -1;
-        }
-        for (int e = tid; e < rows * P * ct; e += nthr) {
-          const int c = e % ct, p = (e / ct) % P, r = e / (ct * P);
-          const long long g = r0 + c0 + r;
-          sval[e] = (g < n && c < cols)
-                        ? load_bits<In>(vals + g * W + p * a.d + d0 + c)
-                        : 0;
+      if constexpr (!INT) {
+        const float c = float_block(a, r0, base, tile_segs, cols, d0, active,
+                                    ty, tx, present, gen, tlab, tval);
+        if (active) float_update(c);
+      } else {
+        for (int s = tid; s < st; s += nthr) present[s] = 0;
+        if (LANES) {
+          for (int e = tid; e < st * P * ct; e += nthr) scratch[e] = 0;
         }
         __syncthreads();
-        if (INT && LANES) {
-          for (int e = tid; e < rows * P * ct; e += nthr) {
-            const int loc = sid[e / (ct * P)];
-            int v = sval[e];
-            if (TIER == EXACT2) v = __float2int_rn(__int_as_float(v));
-            if (v != 0 &&
-                static_cast<unsigned>(loc) < static_cast<unsigned>(tile_segs))
-              atomicAdd(&scratch[loc * P * ct + e % (P * ct)], v);
+        for (int r = tid; r < B; r += nthr) {
+          if (r0 + r < n) {
+            const int loc = a.ids[r0 + r] - base;
+            if (static_cast<unsigned>(loc) < static_cast<unsigned>(tile_segs))
+              present[loc] = 1;
           }
-        } else if (mine) {
-          for (int r = 0; r < rows; ++r) {
-            if (INT) {
+        }
+        __syncthreads();
+        const bool mine = active && present[ty];
+
+        int ctr[P];
+#pragma unroll
+        for (int p = 0; p < P; ++p) ctr[p] = 0;
+
+        for (int c0 = 0; c0 < B; c0 += cr) {
+          const int rows = min(cr, B - c0);
+          for (int r = tid; r < rows; r += nthr) {
+            const long long g = r0 + c0 + r;
+            sid[r] = g < n ? a.ids[g] - base : -1;
+          }
+          for (int e = tid; e < rows * P * ct; e += nthr) {
+            const int c = e % ct, p = (e / ct) % P, r = e / (ct * P);
+            const long long g = r0 + c0 + r;
+            sval[e] = (g < n && c < cols)
+                          ? load_bits<In>(vals + g * W + p * a.d + d0 + c)
+                          : 0;
+          }
+          __syncthreads();
+          if (LANES) {
+            for (int e = tid; e < rows * P * ct; e += nthr) {
+              const int loc = sid[e / (ct * P)];
+              int v = sval[e];
+              if (TIER == EXACT2) v = __float2int_rn(__int_as_float(v));
+              if (v != 0 &&
+                  static_cast<unsigned>(loc) < static_cast<unsigned>(tile_segs))
+                atomicAdd(&scratch[loc * P * ct + e % (P * ct)], v);
+            }
+          } else if (mine) {
+            for (int r = 0; r < rows; ++r) {
               if (sid[r] == ty) {
 #pragma unroll
                 for (int p = 0; p < P; ++p) {
@@ -266,53 +492,32 @@ __global__ void segsum_policy_kernel(Args a) {
                   ctr[p] = wadd(ctr[p], v);
                 }
               }
-            } else {
-              if (c0 + r == lane_hi) {          // close lane lane_k
-                const float part = close_tree(stk, sp, cnt);
-                total = lane_k == 0 ? part : total + part;
-                ++lane_k;
-                lane_hi = static_cast<int>(
-                    (static_cast<long long>(lane_k + 1) * B) / a.lanes);
-                sp = 0;
-                cnt = 0u;
-              }
-              const float leaf =
-                  sid[r] == ty ? __int_as_float(sval[r * ct + tx]) : 0.f;
-              push_leaf(leaf, stk, sp, cnt);
             }
           }
+          __syncthreads();
         }
-        __syncthreads();
-      }
 
-      if (!INT) {
-        if (active) {
-          float c = 0.f;
-          if (mine) {
-            const float part = close_tree(stk, sp, cnt);
-            c = lane_k == 0 ? part : total + part;
+        if (mine) {
+          if (LANES) {
+#pragma unroll
+            for (int p = 0; p < P; ++p)
+              ctr[p] = scratch[(ty * P + p) * ct + tx];
           }
-          float_update(c);
-        }
-      } else if (mine) {
-        if (LANES) {
+          if (TIER == EXACT) {
+            iacc = wadd(iacc, ctr[0]);
+          } else if (TIER == EXACT2) {
+            int wb = 0;
+            hi = wrap_add(hi, ctr[0] >> 15, wb);
+            lo = wrap_add(lo, ctr[0] & 0x7fff, wb);
 #pragma unroll
-          for (int p = 0; p < P; ++p) ctr[p] = scratch[(ty * P + p) * ct + tx];
-        }
-        if (TIER == EXACT) {
-          iacc = wadd(iacc, ctr[0]);
-        } else if (TIER == EXACT2) {
-          int wb = 0;
-          hi = wrap_add(hi, ctr[0] >> 15, wb);
-          lo = wrap_add(lo, ctr[0] & 0x7fff, wb);
+            for (int k = 1; k < P; ++k) bins[k] = wrap_add(bins[k], ctr[k], wb);
+            ovf = wadd(ovf, wb);
+          } else {
+            int wb = 0;
 #pragma unroll
-          for (int k = 1; k < P; ++k) bins[k] = wrap_add(bins[k], ctr[k], wb);
-          ovf = wadd(ovf, wb);
-        } else {
-          int wb = 0;
-#pragma unroll
-          for (int k = 0; k < P; ++k) bins[k] = wrap_add(bins[k], ctr[k], wb);
-          ovf = wadd(ovf, wb);
+            for (int k = 0; k < P; ++k) bins[k] = wrap_add(bins[k], ctr[k], wb);
+            ovf = wadd(ovf, wb);
+          }
         }
       }
       __syncthreads();
@@ -347,7 +552,10 @@ __global__ void segsum_policy_kernel(Args a) {
 }
 
 // Bytes of dynamic shared memory; ops.py's `segsum_smem_bytes` mirrors it.
-size_t smem_bytes(const Args& a, int parts, bool int_lanes) {
+size_t smem_bytes(const Args& a, int parts, bool int_lanes, bool float_tree) {
+  if (float_tree)
+    return (32 + a.seg_tile +
+            (2 * static_cast<size_t>(a.chunk_rows) - 1) * (1 + a.col_tile)) * 4;
   size_t words = 32 + a.seg_tile + a.chunk_rows +
                  static_cast<size_t>(a.chunk_rows) * parts * a.col_tile;
   if (int_lanes) words += static_cast<size_t>(a.seg_tile) * parts * a.col_tile;
@@ -357,7 +565,13 @@ size_t smem_bytes(const Args& a, int parts, bool int_lanes) {
 template <int TIER, bool LANES>
 int launch(const Args& a, cudaStream_t stream) {
   auto kern = segsum_policy_kernel<TIER, LANES>;
-  const size_t smem = smem_bytes(a, Tier<TIER>::PARTS, Tier<TIER>::INT && LANES);
+  constexpr bool float_tree = !Tier<TIER>::INT;
+  // a float tier's tree chunk: a power of two of at most TREE_ROWS rows
+  if (float_tree && (a.chunk_rows < 1 || a.chunk_rows > TREE_ROWS ||
+                     (a.chunk_rows & (a.chunk_rows - 1))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(a, Tier<TIER>::PARTS,
+                                 Tier<TIER>::INT && LANES, float_tree);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -83,7 +83,8 @@ def launch_shape(policy, num_segments: int, width: int, program=None):
     int_lanes = policy.integer and program is not None \
         and program.contrib == "lanes"
     ct = ops.col_tile_for(d)
-    st = ops.seg_tile_for(num_segments, d, policy.parts, int_lanes=int_lanes)
+    st = ops.seg_tile_for(num_segments, d, policy.parts, int_lanes=int_lanes,
+                          float_tree=not policy.integer)
     grid = (-(-d // ct), -(-num_segments // st))
     return ct, st, grid
 
@@ -123,12 +124,14 @@ def segsum_policy_cuda(values: torch.Tensor, ids: torch.Tensor,
     lanes_form = program is not None and program.contrib == "lanes"
     nl = len(lane_bounds(block_rows, program.lanes if lanes_form else 1)) - 1
     ct, st, _ = launch_shape(policy, num_segments, w, program)
+    chunk = ops.CHUNK_ROWS if policy.integer \
+        else ops.tree_rows_for(block_rows, nl)
     ptrs = [c.data_ptr() for c in carry] + [None] * (4 - len(carry))
     lib = _build.load("segsum")
     rc = lib.segsum_policy_launch(
         _TIERS[name], int(lanes_form), values.data_ptr(), ids.data_ptr(),
         *ptrs, n, block_rows, num_segments, seg_offset, w // policy.parts,
-        nl, st, ct, ops.CHUNK_ROWS,
+        nl, st, ct, chunk,
         torch.cuda.current_stream(values.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed for {name}: CUDA error {rc}")

@@ -17,10 +17,11 @@ tile so that all carries of the tile fit an 8 MiB VMEM budget, one tile
 per kernel call.  On the H100 a CUDA block holds one carry cell per
 thread, in registers, so the label tile of one CUDA block is bounded by
 its thread count (``BLOCK_THREADS``) and by what its shared memory must
-hold beside: the staged rows of a chunk and, for the integer lane form,
-an int32 scratch of the tile's contributions — within the 227 KB
-(232,448 bytes) a Hopper block may use.  The label tiles are the grid's
-y dimension, so one launch covers the whole label space.
+hold beside: for the integer tiers the staged rows of a chunk and, for
+the lane form, an int32 scratch of the tile's contributions; for the
+float tiers a chunk's pairwise tree (``tree_rows_for``) — within the
+227 KB (232,448 bytes) a Hopper block may use.  The label tiles are the
+grid's y dimension, so one launch covers the whole label space.
 """
 
 from __future__ import annotations
@@ -45,20 +46,38 @@ from .intac_accum import intac_accum_cuda, intac_accum_torch
 BLOCK_THREADS = 512
 #: raw columns per CUDA block: 16 consecutive floats, 64-byte row pieces
 COL_TILE = 16
-#: rows of a schedule block staged in shared memory at a time
+#: rows of a schedule block staged in shared memory at a time (integer
+#: tiers)
 CHUNK_ROWS = 64
+#: padded rows of a float tier's tree chunk, at most (``TREE_ROWS`` in
+#: ``csrc/segsum.cu``)
+TREE_ROWS = 512
 
 
 def col_tile_for(d: int) -> int:
     return max(1, min(int(d), COL_TILE))
 
 
+def tree_rows_for(block_rows: int, lanes: int = 1) -> int:
+    """Rows of a float tier's tree chunk: the longest lane of
+    ``lane_bounds(block_rows, lanes)`` padded to a power of two, at most
+    ``TREE_ROWS``."""
+    nl = max(1, min(int(lanes), int(block_rows)))
+    longest = -(-int(block_rows) // nl)
+    return min(1 << max(0, (longest - 1).bit_length()), TREE_ROWS)
+
+
 def segsum_smem_bytes(seg_tile: int, col_tile: int, parts: int,
-                      int_lanes: bool, chunk_rows: int = CHUNK_ROWS) -> int:
+                      int_lanes: bool, chunk_rows: int = CHUNK_ROWS, *,
+                      float_tree: bool = False) -> int:
     """Dynamic shared memory of one CUDA block of K1 (mirrors
     ``smem_bytes`` in ``csrc/segsum.cu``): hit flags, label-present
-    flags, the staged labels and values of a chunk, and the int32 lane
-    scratch."""
+    flags, then for the integer tiers the staged labels and values of a
+    chunk and the int32 lane scratch, for the float tiers
+    (``float_tree``) a chunk's tree of ``2 * chunk_rows - 1`` nodes: one
+    label and ``col_tile`` values each."""
+    if float_tree:
+        return 4 * (32 + seg_tile + (2 * chunk_rows - 1) * (1 + col_tile))
     words = 32 + seg_tile + chunk_rows + chunk_rows * parts * col_tile
     if int_lanes:
         words += seg_tile * parts * col_tile
@@ -66,14 +85,17 @@ def segsum_smem_bytes(seg_tile: int, col_tile: int, parts: int,
 
 
 def seg_tile_for(num_segments: int, d: int, parts: int = 1, *,
-                 int_lanes: bool = True) -> int:
+                 int_lanes: bool = True, float_tree: bool = False) -> int:
     """Labels per CUDA block: as many as the block has threads for, one
     per carry cell of the ``col_tile_for(d)`` columns, halved until the
-    block's shared memory fits ``SMEM_BYTES``."""
+    block's shared memory fits ``SMEM_BYTES`` (for the float tiers, with
+    a tree chunk of ``TREE_ROWS``, the largest any block size gives)."""
     ct = col_tile_for(d)
+    chunk = TREE_ROWS if float_tree else CHUNK_ROWS
     tile = max(1, min(int(num_segments), BLOCK_THREADS // ct))
-    while tile > 1 and segsum_smem_bytes(tile, ct, parts,
-                                         int_lanes) > SMEM_BYTES:
+    while tile > 1 and segsum_smem_bytes(
+            tile, ct, parts, int_lanes, chunk,
+            float_tree=float_tree) > SMEM_BYTES:
         tile //= 2
     return tile
 

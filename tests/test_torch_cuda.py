@@ -64,6 +64,52 @@ def test_cuda_kernel_bitwise_plain_version(policy, cuda):
                 assert torch.equal(a, b), (policy, contrib, block)
 
 
+def _runs_stream(seed, n, d, s, block):
+    """Back-to-back runs of s labels with 5% sentinel rows, one whole
+    schedule block of sentinels (rows [block, 2 * block)), magnitudes
+    2^-30..2^30, 10% of the values -0.0 and every row of label 5 -0.0."""
+    rng = np.random.RandomState(seed)
+    cuts = np.sort(rng.choice(np.arange(1, n), size=4 * s, replace=False))
+    ids = np.empty(n, np.int32)
+    for r, rows in enumerate(np.split(np.arange(n), cuts)):
+        ids[rows] = r % s
+    ids[rng.rand(n) < 0.05] = -1
+    ids[block:2 * block] = -1
+    vals = rng.randn(n, d) * 2.0 ** rng.randint(-30, 31, (n, d))
+    vals[rng.rand(n, d) < 0.1] = -0.0
+    vals[ids == 5] = -0.0
+    return vals.astype(np.float32), ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ("fast", "compensated"))
+def test_cuda_float_tree_bitwise_on_runs(policy, cuda):
+    """The float tiers' shared tree and per-label descent, {dot, lanes} x
+    block sizes {96, 4096} (several tree chunks per lane), on a ragged
+    stream of back-to-back runs with an all-sentinel block and -0.0
+    values, 20 columns (a ragged column tile) and 2 label tiles."""
+    pol = get_policy(policy)
+    for block in (96, 4096):
+        vals, ids = _runs_stream(13, 3 * 4096 + 1234, 20, S, block)
+        dom = torch.tensor(vals, device=cuda)
+        tids = torch.tensor(ids, device=cuda)
+        pad = (-len(ids)) % block
+        pdom = torch.cat([dom, dom.new_zeros((pad, dom.shape[1]))])
+        pids = torch.cat([tids, tids.new_full((pad,), -1)])
+        for contrib in ("dot", "lanes"):
+            prog = plan_program(pol, num_segments=S,
+                                domain_width=dom.shape[1], block_size=block,
+                                contrib=contrib)
+            plain = K.segsum_policy_torch(pdom, pids, S, policy=pol,
+                                          program=prog, block_rows=block)
+            kern = K.segsum_policy_cuda(dom, tids, S, policy=pol,
+                                        program=prog, block_rows=block)
+            torch.cuda.synchronize()
+            for a, b in zip(plain, kern):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32)), \
+                    (policy, contrib, block)
+
+
 @pytest.mark.cuda
 def test_reduce_runs_on_the_card_by_default(cuda):
     """``device=None`` means the card: the result lives there, K1 ran, and

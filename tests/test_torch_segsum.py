@@ -13,7 +13,10 @@ for 5 tiers x {dot, lanes} x block sizes {64, 128, 512}:
 
 The CUDA kernel itself is compared with this plain version, bitwise, in
 ``tests/test_torch_cuda.py`` (GPU only) and by ``chip_smoke.py`` at the
-main path's shapes.
+main path's shapes.  Here, ``_kernel_float_block`` emulates the kernel's
+float path step by step (padded lanes, chunked unmasked trees with a pure
+label per node, the per-label descent, the chunk-level binary-counter
+stack, the lane fold) and is held bitwise to ``policy.float_contrib``.
 """
 
 import numpy as np
@@ -31,6 +34,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ref import segsum_ref  # noqa: E402
 from repro_torch.reduce import get_policy as t_policy  # noqa: E402
 from repro_torch.reduce import plan_program as t_plan  # noqa: E402
+from repro_torch.reduce.policy import float_contrib, lane_bounds  # noqa: E402
 
 POLICIES = ("fast", "compensated", "exact", "exact2", "procrastinate")
 INT_POLICIES = ("exact", "exact2", "procrastinate")
@@ -140,12 +144,21 @@ def test_cuda_wrapper_refuses_cpu_tensors():
                                        (1024, 64, 6), (1, 1, 1),
                                        (100000, 3, 2)])
 def test_label_tile_fits_the_block(s, d, parts):
+    ct = ops.col_tile_for(d)
     for int_lanes in (False, True):
         st = ops.seg_tile_for(s, d, parts, int_lanes=int_lanes)
-        ct = ops.col_tile_for(d)
         assert 1 <= st <= s and st * ct <= ops.BLOCK_THREADS
         assert ops.segsum_smem_bytes(st, ct, parts, int_lanes) \
             <= ops.SMEM_BYTES
+    # the float tiers (one plane) hold a chunk's tree instead
+    st = ops.seg_tile_for(s, d, 1, int_lanes=False, float_tree=True)
+    assert 1 <= st <= s and st * ct <= ops.BLOCK_THREADS
+    for block in (512, 4096):
+        for lanes in (1, 4):
+            chunk = ops.tree_rows_for(block, lanes)
+            assert chunk == min(block // lanes, ops.TREE_ROWS)
+            assert ops.segsum_smem_bytes(st, ct, 1, False, chunk,
+                                         float_tree=True) <= ops.SMEM_BYTES
 
 
 def test_main_path_launch_shape():
@@ -155,3 +168,156 @@ def test_main_path_launch_shape():
                                   t_plan("exact2", num_segments=1024,
                                          domain_width=512))
     assert (ct, st, grid) == (16, 32, (4, 32))
+
+
+# ---------------------------------------------------------------------------
+# The kernel's float path, emulated step by step
+# ---------------------------------------------------------------------------
+
+WILD, MIXED = -1, -2
+TREE_DEPTH = 9          # the descent's register stack in csrc/segsum.cu
+
+
+def _push_leaf(stk, cnt, v):
+    """``push_leaf``: after leaf i, merge ctz(i + 1) times, left first."""
+    cnt += 1
+    c = cnt
+    while c % 2 == 0:
+        v = stk.pop() + v
+        c //= 2
+    stk.append(v)
+    return cnt
+
+
+def _close_tree(stk, cnt, zero):
+    p2 = 1
+    while p2 < cnt:
+        p2 *= 2
+    while cnt < p2:
+        cnt = _push_leaf(stk, cnt, zero)
+    return stk[0]
+
+
+def _pure_label(a, b):
+    return torch.where(a == b, a, torch.where(
+        a == WILD, b, torch.where(b == WILD, a, torch.full_like(a, MIXED))))
+
+
+def _descend(labs, vals, s, zero):
+    """``descend``: the masked sum for label s from the chunk's root,
+    walking MIXED nodes only, with the kernel's stack of left siblings."""
+    top = len(labs) - 1
+    h, i, stk = top, 0, []
+    while True:
+        lab = int(labs[h][i])
+        if lab == MIXED:
+            h, i = h - 1, 2 * i
+            continue
+        v = vals[h][i] if lab == s else zero
+        while i % 2:
+            v = stk.pop() + v
+            i, h = i // 2, h + 1
+        if h == top:
+            return v
+        stk.append(v)
+        assert len(stk) <= TREE_DEPTH
+        i += 1
+
+
+def _kernel_float_block(ids, vals, tile0, tile_segs, lanes, chunk_rows):
+    """One schedule block through the kernel's float path, for the label
+    tile [tile0, tile0 + tile_segs): ids (B,) int32, vals (B, W) f32 ->
+    (tile_segs, W) f32."""
+    b, w = vals.shape
+    zero = torch.zeros(w, dtype=torch.float32)
+    loc = ids.to(torch.int64) - tile0
+    wild = (loc < 0) | (loc >= tile_segs)
+    lab_rows = torch.where(wild, torch.full_like(loc, WILD), loc)
+    val_rows = torch.where(wild[:, None], zero, vals)
+    bounds = lane_bounds(b, lanes)
+    total = [None] * tile_segs
+    for k, (lo, hi) in enumerate(zip(bounds, bounds[1:])):
+        n_rows = hi - lo
+        size = 1 << max(0, (n_rows - 1).bit_length())
+        chunk = min(size, chunk_rows)
+        stacks = [([], 0) for _ in range(tile_segs)]
+        for c0 in range(0, n_rows, chunk):
+            real = min(chunk, n_rows - c0)
+            lab = torch.full((chunk,), WILD, dtype=torch.int64)
+            lab[:real] = lab_rows[lo + c0:lo + c0 + real]
+            x = torch.zeros((chunk, w), dtype=torch.float32)
+            x[:real] = val_rows[lo + c0:lo + c0 + real]
+            labs, xs = [lab], [x]
+            while len(labs[-1]) > 1:
+                labs.append(_pure_label(labs[-1][0::2], labs[-1][1::2]))
+                xs.append(xs[-1][0::2] + xs[-1][1::2])
+            present = set(lab.tolist())
+            for s in range(tile_segs):
+                part = _descend(labs, xs, s, zero) if s in present else zero
+                stk, cnt = stacks[s]
+                stacks[s] = (stk, _push_leaf(stk, cnt, part))
+        for s in range(tile_segs):
+            part = _close_tree(*stacks[s], zero)
+            total[s] = part if k == 0 else total[s] + part
+    return torch.stack(total)
+
+
+def _layout_ids(layout, b, s, rng):
+    """Labels of one schedule block in [-1, s) (-1: a sentinel row)."""
+    if layout == "sentinel":
+        return np.full(b, -1, np.int32)
+    if layout == "one_label":
+        return np.full(b, s - 1, np.int32)
+    if layout == "random":
+        return rng.randint(-1, s, b).astype(np.int32)
+    cuts = np.sort(rng.choice(np.arange(1, b), size=min(2 * s, b - 1),
+                              replace=False))
+    runs = np.split(np.arange(b), cuts)
+    ids = np.empty(b, np.int32)
+    for r, rows in enumerate(runs):
+        ids[rows] = rng.randint(0, s)
+        if layout == "sentinel_runs" and r % 3 == 1:
+            ids[rows] = -1
+    ids[rng.rand(b) < 0.05] = -1
+    return ids
+
+
+def _adversarial_vals(ids, w, rng):
+    """Magnitudes 2^-30..2^30 with 10% -0.0 and 10% +0.0 entries, and
+    every row of the largest label all -0.0."""
+    vals = rng.randn(len(ids), w) * 2.0 ** rng.randint(-30, 31, (len(ids), w))
+    u = rng.rand(len(ids), w)
+    vals[u < 0.1] = -0.0
+    vals[(u >= 0.1) & (u < 0.2)] = 0.0
+    vals[ids == ids.max()] = -0.0
+    return vals.astype(np.float32)
+
+
+@pytest.mark.parametrize("layout", ("runs", "random", "sentinel_runs",
+                                    "sentinel", "one_label"))
+@pytest.mark.parametrize("block,lanes", [(64, 1), (64, 4), (96, 1), (96, 4),
+                                         (130, 4), (512, 1), (512, 4),
+                                         (4096, 1), (4096, 4)])
+def test_kernel_float_path_emulation_bitwise_float_contrib(layout, block,
+                                                           lanes):
+    """The kernel's shared-tree-and-descent order gives the pinned order's
+    bits, for the whole label space and for a label tile of it (the other
+    labels wild), with the kernel's chunk of up to 512 rows and with a
+    16-row chunk (many chunks per lane).  ``one_label``: every row -0.0
+    of one label, whose sum stays -0.0 where no lane is padded."""
+    rng = np.random.RandomState(block * 10 + lanes)
+    s, w = 8, 3
+    ids = _layout_ids(layout, block, s, rng)
+    vals = _adversarial_vals(ids, w, rng)
+    tid, tval = torch.tensor(ids), torch.tensor(vals)
+    want = float_contrib(tid[None], tval[None], s, lanes=lanes)[0]
+    for chunk_rows in (ops.tree_rows_for(block, lanes), 16):
+        for tile0, tile_segs in ((0, s), (2, 3)):
+            got = _kernel_float_block(tid, tval, tile0, tile_segs, lanes,
+                                      chunk_rows)
+            ref = want[tile0:tile0 + tile_segs]
+            assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), \
+                (layout, block, lanes, chunk_rows, tile0)
+    if layout == "one_label" and block % lanes == 0 \
+            and (block // lanes) & (block // lanes - 1) == 0:
+        assert torch.signbit(want[s - 1]).all()
