@@ -18,13 +18,21 @@ KV rows, and at N=32,768 x D=6,144 for INTAC.  All data is drawn from
    block sizes {64, 128, 512} at N=65,536, D=16, S=48, plus exact2 at
    S=4,096, D=64 (many label tiles), plus fast and compensated x {dot,
    lanes} x block sizes {96, 4,096} on a stream of back-to-back runs with
-   10% -0.0 values, one label all -0.0 and an all-sentinel block;
+   10% -0.0 values, one label all -0.0 and an all-sentinel block, plus
+   each integer tier on a domain near +-2^30 (ovf ends nonzero), on
+   random labels at S=4,096, D=64, at D=20 and D=18 (16-byte and scalar
+   loads), at a ragged N and at a label offset; in every case K1's
+   pre-pass (each schedule block's label range) bitwise against its
+   plain version too;
 4. reduce main path — each tier's result against a float64 segment sum
    on the card, within the tier's documented bound; K1 launched in every
    tier's run (launch counts reset just before the call, read just
    after); integer tiers bitwise across block sizes 128 and 512;
    ``op="mean"`` and ``op="moments"`` on exact2;
 5. reduce timings — ``reduce``, K1, its plain version, ``index_add_``;
+   K1 fast and exact on all-sentinel labels (the pre-pass and range walk
+   alone); K1 exact on a shuffled copy of the labels; the pre-pass
+   bitwise at the main path's size;
 6. decode, kernel against plain — K2, K3 and K4 bitwise against their
    plain versions at (B, H, K, S, d) = (3, 8, 2, 1,000, 64) and at full
    width;
@@ -153,6 +161,25 @@ def runs_stream(n, d, s, seed, device, block):
     vals = torch.where(neg, torch.full_like(vals, -0.0), vals)
     ids[block:2 * block] = OUT_OF_RANGE_LABEL
     return vals.contiguous(), ids
+
+
+def wrapping_domain(pol, n, d, seed, device):
+    """A domain of the tier's dtype and width, half its entries near
+    +-2^30, the rest below 2^20: block sums and carries wrap, so exact2's
+    and procrastinate's ``ovf`` ends nonzero."""
+    import torch
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    w = pol.parts * d
+    near = (2 ** 30 - 64 * torch.randint(0, 1024, (n, w), generator=g,
+                                         device=device)) \
+        * (2 * torch.randint(0, 2, (n, w), generator=g, device=device) - 1)
+    small = torch.randint(-2 ** 20, 2 ** 20, (n, w), generator=g,
+                          device=device)
+    dom = torch.where(torch.rand((n, w), generator=g, device=device) < 0.5,
+                      near, small)
+    return dom.to(torch.float32 if pol.name == "exact2" else torch.int32) \
+        .contiguous()
 
 
 def f64_reference(vals, ids, s):
@@ -580,41 +607,68 @@ def main(argv=None) -> int:
 
     # 3. K1 against its plain version, bitwise
     errs = {t: 0.0 for t in TIERS}
-    cases = [(t, c, b, 65536, 16, 48, "sets") for t in TIERS
+    cases = [(t, c, b, 65536, 16, 48, "sets", 0) for t in TIERS
              for c in ("dot", "lanes") for b in (64, 128, 512)]
-    cases.append(("exact2", "lanes", 512, 65536, 64, 4096, "sets"))
-    cases.append(("exact2", "dot", 512, 65536, 64, 4096, "sets"))
-    cases += [(t, c, b, 65536, 16, 48, "runs") for t in ("fast", "compensated")
+    cases.append(("exact2", "lanes", 512, 65536, 64, 4096, "sets", 0))
+    cases.append(("exact2", "dot", 512, 65536, 64, 4096, "sets", 0))
+    cases += [(t, c, b, 65536, 16, 48, "runs", 0) for t in ("fast", "compensated")
               for c in ("dot", "lanes") for b in (96, 4096)]
-    for tier, contrib, block, n, d, s, stream in cases:
-        if stream == "sets":
-            vals, ids = make_stream(n, d, s, args.seed + 1, dev)
-        else:
-            vals, ids = runs_stream(n, d, s, args.seed + 1, dev, block)
+    # the integer tiers' register runs: sums that wrap (ovf != 0), random
+    # labels over 128 label tiles, a ragged 4-column tile (D=20), the
+    # scalar loads (D=18), a ragged N, a label window at an offset
+    for t in INT_TIERS:
+        cases += [(t, "lanes", 512, 65536, 16, 48, "wrap", 0),
+                  (t, "lanes", 512, 65536, 64, 4096, "random", 0),
+                  (t, "lanes", 128, 65536, 20, 48, "sets", 0),
+                  (t, "dot", 128, 65536, 18, 48, "sets", 0),
+                  (t, "lanes", 512, 65536 + 77, 16, 48, "sets", 0),
+                  (t, "lanes", 128, 65536, 16, 16, "sets", 24)]
+    for tier, contrib, block, n, d, s, stream, off in cases:
         pol = get_policy(tier)
-        dom, _ = pol.prepare(vals, n)
+        if stream == "runs":
+            vals, ids = runs_stream(n, d, s, args.seed + 1, dev, block)
+        else:
+            vals, ids = make_stream(n, d, s + off, args.seed + 1, dev)
+        if stream == "random":
+            g = torch.Generator(device=dev)
+            g.manual_seed(args.seed + 5)
+            ids = torch.randint(-1, s, (n,), generator=g, device=dev,
+                                dtype=torch.int32)
+        if stream == "wrap":
+            dom = wrapping_domain(pol, n, d, args.seed + 6, dev)
+        else:
+            dom, _ = pol.prepare(vals, n)
         prog = plan_program(pol, num_segments=s, domain_width=dom.shape[1],
                             block_size=block, contrib=contrib)
         kern = K.segsum_policy_cuda(dom, ids, s, policy=pol, program=prog,
-                                    block_rows=block)
+                                    block_rows=block, seg_offset=off)
         pad = (-n) % block              # the kernel reads these as sentinels
         plain = K.segsum_policy_torch(
             torch.cat([dom, dom.new_zeros((pad, dom.shape[1]))]),
             torch.cat([ids, ids.new_full((pad,), -1)]), s, policy=pol,
-            program=prog, block_rows=block)
+            program=prog, block_rows=block, seg_offset=off)
+        ranges_ok = torch.equal(
+            K.block_label_ranges_cuda(ids, block, s, off),
+            K.block_label_ranges_torch(ids, block, s, off))
         torch.cuda.synchronize()
         ok = all(torch.equal(a, b) for a, b in zip(kern, plain))
         err = max(float((a.double() - b.double()).abs().max())
                   for a, b in zip(kern, plain))
         errs[tier] = max(errs[tier], err)
-        ct, st, grid = K.launch_shape(pol, s, dom.shape[1], prog)
+        ct, st, grid = K.launch_shape(pol, s, dom.shape[1])
+        wrapped = stream == "wrap" and tier != "exact"
         print(f"check {tier:13s} {contrib:5s} B={block:3d} N={n} D={d} "
-              f"S={s} {stream}: grid {grid[0]}x{grid[1]} (label tile {st}, "
-              f"column tile {ct}) max|kernel-plain|={err:g} "
-              f"{'bitwise' if ok else 'DIFFER'}", flush=True)
-        if not ok:
+              f"S={s} offset={off} {stream}: grid {grid[0]}x{grid[1]} "
+              f"(label tile {st}, column tile {ct}) max|kernel-plain|="
+              f"{err:g} {'bitwise' if ok else 'DIFFER'}; pre-pass "
+              f"{'bitwise' if ranges_ok else 'DIFFER'}"
+              + (f"; ovf cells nonzero {int((kern[-1] != 0).sum())}"
+                 if wrapped else ""), flush=True)
+        if not (ok and ranges_ok):
             return fail(f"K1 differs from its plain version: {tier} "
-                        f"{contrib} B={block} S={s}")
+                        f"{contrib} B={block} S={s} {stream}")
+        if wrapped and not bool(kern[-1].any()):
+            return fail(f"{tier}: the wrapping domain left ovf zero")
         del vals, ids, dom, kern, plain
 
     # 4. the main path at full size
@@ -704,16 +758,45 @@ def main(argv=None) -> int:
         call = lambda: K.segsum_policy_cuda(  # noqa: E731
             dom, mids, s, policy=pol, program=prog, block_rows=512)
         kern_ms = cuda_ms(call, REPS)
-        if tier == "fast":
-            # the same launch where no row holds a label: the label scan
-            # and the folds of +0 alone
+        if tier in ("fast", "exact"):
+            # the same launch where no row holds a label: the pre-pass, the
+            # range walk and (fast) the folds of +0 alone
             none = torch.full_like(mids, -1)
-            scan_ms = cuda_ms(lambda: K.segsum_policy_cuda(
+            walk_ms = cuda_ms(lambda: K.segsum_policy_cuda(
                 dom, none, s, policy=pol, program=prog, block_rows=512), REPS)
-            print(f"time fast K1 split: label scan alone {scan_ms:.3f} ms, "
-                  f"touched blocks {kern_ms - scan_ms:.3f} ms", flush=True)
+            print(f"time {tier} K1 split: pre-pass and range walk alone "
+                  f"{walk_ms:.3f} ms, touched blocks "
+                  f"{kern_ms - walk_ms:.3f} ms", flush=True)
             del none
-        _, st, grid = K.launch_shape(pol, s, w, prog)
+        if tier == "fast":
+            ok = torch.equal(K.block_label_ranges_cuda(mids, 512, s),
+                             K.block_label_ranges_torch(mids, 512, s))
+            print(f"check pre-pass at the main path: "
+                  f"{'bitwise' if ok else 'DIFFER'}", flush=True)
+            check(ok, "the pre-pass differs from its plain version")
+        if tier == "exact":
+            # the same values under a shuffled label stream: every schedule
+            # block touches every label tile
+            g = torch.Generator(device=dev)
+            g.manual_seed(args.seed + 9)
+            shuf = mids[torch.randperm(n, generator=g, device=dev)] \
+                .contiguous()
+            shuf_ms = cuda_ms(lambda: K.segsum_policy_cuda(
+                dom, shuf, s, policy=pol, program=prog, block_rows=512), REPS)
+            pad = (-n) % 512
+            ok, _ = same(K.segsum_policy_cuda(dom, shuf, s, policy=pol,
+                                              program=prog, block_rows=512),
+                         K.segsum_policy_torch(
+                             torch.cat([dom, dom.new_zeros((pad, w))]),
+                             torch.cat([shuf, shuf.new_full((pad,), -1)]), s,
+                             policy=pol, program=prog, block_rows=512))
+            print(f"time exact K1 on shuffled labels: {shuf_ms:.3f} ms "
+                  f"(back-to-back {kern_ms:.3f} ms); kernel vs plain "
+                  f"{'bitwise' if ok else 'DIFFER'} | {smi}", flush=True)
+            check(ok, "exact: K1 differs from its plain version on shuffled "
+                      "labels")
+            del shuf
+        _, st, grid = K.launch_shape(pol, s, w)
         kern = call()
         pad = (-n) % 512
         pdom = torch.cat([dom, dom.new_zeros((pad, w))]) if pad else dom
@@ -743,7 +826,8 @@ def main(argv=None) -> int:
         ops = kept * w
         bound_ms = max(bytes_ / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
         print(f"time {tier:13s}: reduce {e2e:.3f} ms | K1 {kern_ms:.3f} ms, "
-              f"{launches_of[tier]} launch(es)/call, grid "
+              f"{launches_of[tier]} launch(es)/call (2 CUDA kernels each: "
+              f"pre-pass, block schedule), grid "
               f"{grid[0]}x{grid[1]} ({grid[1]} label tiles of {st}) | bound "
               f"{bound_ms:.3f} ms ({bytes_ / 1e9:.3f} GB) | plain "
               f"{plain_ms:.1f} ms | library "

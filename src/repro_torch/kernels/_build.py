@@ -43,14 +43,21 @@ _C = ctypes.c_int
 _P = ctypes.c_void_p
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+#: per source: its entry points and their argument types
 _SIGNATURES = {
-    "segsum": ("segsum_policy_launch",
-               [_C, _C, _P, _P, _P, _P, _P, _P, _L,
-                _C, _C, _C, _C, _C, _C, _C, _C, _P]),
-    "flash_decode": ("flash_decode_launch",
-                     [_C, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _C, _C, _C, _C, _C, _C, _C, _C, _C, _C, _C, _F, _P]),
-    "intac_accum": ("intac_accum_launch", [_P, _F, _P, _L, _C, _C, _P]),
+    "segsum": {
+        "segsum_policy_launch": [_C, _P, _P, _P, _P, _P, _P, _P, _L,
+                                 _C, _C, _C, _C, _C, _C, _C, _C, _P],
+        "block_ranges_launch": [_P, _P, _L, _C, _C, _C, _P],
+    },
+    "flash_decode": {
+        "flash_decode_launch": [_C, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _C, _C, _C, _C, _C, _C, _C, _C, _C, _C, _C,
+                                _F, _P],
+    },
+    "intac_accum": {
+        "intac_accum_launch": [_P, _F, _P, _L, _C, _C, _P],
+    },
 }
 
 
@@ -111,14 +118,14 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built if needed, with
-    its entry point's argument types set (pointers as ``c_void_p``)."""
+    its entry points' argument types set (pointers as ``c_void_p``)."""
     lib = _LIBS.get(name)
     if lib is None:
         _finish(name, _start(name))
         lib = ctypes.CDLL(str(_target(name)))
-        fn_name, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib

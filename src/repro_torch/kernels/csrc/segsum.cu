@@ -19,13 +19,15 @@
 //
 // Bound.  The least the card can do is read the stream once:
 // N * (W + 1) * 4 bytes over the memory rate.  A label tile that read the
-// whole stream would read it once per tile.  Instead, 32 warps check 32
-// schedule blocks' labels at a time and a CUDA block loads the values of
-// only the schedule blocks that hold one of its labels; the others fold
-// an all-zero contribution (an identity the float tiers still apply, so
-// the op sequence is the plain version's).  With back-to-back sets the
-// values are read about once in all, and each CUDA block re-reads only
-// the labels, N * 4 bytes.
+// whole stream would read it once per tile.  Instead a pre-pass kernel
+// (`block_ranges_kernel`, one warp per schedule block, launched just
+// before K1 on the same stream) reads the labels once and writes each
+// schedule block's least and greatest label of [seg_offset,
+// seg_offset + num_segments), or (INT_MAX, INT_MIN) where it holds none.
+// A CUDA block reads these pairs (8 bytes a schedule block, a window of
+// one per thread at a time, the next window's loads in flight) and loads
+// the rows of only the schedule blocks whose range meets its label tile.
+// With back-to-back sets the values are read about once in all.
 //
 // Numerics, per tier (exactly `Policy.update` in policy.py):
 //   fast         acc += contrib
@@ -34,13 +36,32 @@
 //   exact2       limb_split(q part) -> wrap_add into hi, lo; wrap_add of
 //                the 7 residual digit planes; ovf += every wrap flag
 //   procrastinate wrap_add of the 6 bins; ovf += every wrap flag
-// Integer contributions are int32 sums, which any order gives to the bit:
-// the dot form adds each cell's rows in a loop, the lane form scatters
-// with int32 atomics into shared memory.  Float contributions follow the
-// pinned order of policy.py: per lane, a pairwise tree over the lane's
-// rows zero-padded to a power of two, where a row of another label is a
-// +0 leaf; lanes folded in lane order.  Built with --fmad=false and
-// without fast-math: no contraction, no flush-to-zero, no float atomics.
+// A schedule block whose range misses the tile holds none of its labels:
+// its contribution is all zero.  The integer tiers skip it, since
+// wrap_add(x, 0) is x with no wrap flag.  The float tiers must still fold
+// that +0 (it turns a -0.0 carry into +0.0, as the plain version's fold
+// does), but folding +0 is idempotent: after one fold no part of the
+// carry is -0.0 (two_sum's error term of a finite sum and +0 is +0), x + +0
+// is x for every other x, and a NaN stays the card's one canonical NaN.  So a run of skipped blocks folds
+// one +0, just before the next touched block, or at the end.
+// Float contributions follow the pinned order of policy.py: per lane, a
+// pairwise tree over the lane's rows zero-padded to a power of two, where
+// a row of another label is a +0 leaf; lanes folded in lane order.  Built
+// with --fmad=false and without fast-math: no contraction, no
+// flush-to-zero, no float atomics.
+//
+// The integer tiers' contribution is an int32 wrapping sum, which any
+// order and any split of the rows gives to the bit; so the dot and lane
+// forms are one code path.  While a touched schedule block is summed,
+// threads own rows, not carry cells: a thread takes a run of consecutive
+// rows of VEC columns of one plane (VEC = 4, one 16-byte load a row, where
+// the width allows), issues the loads of GROUP_ROWS rows (labels and
+// values) before using any, sums in registers while consecutive rows carry
+// one label of the tile, and flushes the run with one int32 shared atomic
+// per column where the label changes and at the end.  After one barrier
+// each carry-cell thread reads its own cell of the (label x plane x
+// column) scratch, zeroes it, and folds it, zero included.  The scratch is
+// double-buffered, so a touched block costs one barrier.
 //
 // The float tiers' tree.  A subtree whose rows all carry label s, or no
 // label of the tile (sentinels, padding, rows past N, other tiles' labels:
@@ -59,9 +80,18 @@
 // 2 log2(C) at a set boundary, instead of C leaves.  Chunks are aligned
 // subtrees of the lane's tree, so the binary-counter stack (`push_leaf`,
 // `close_tree`) joins the chunk sums into the lane's sum.
+//
+// A schedule block whose range meets the tile may still hold none of its
+// labels (its least label below the tile, its greatest above).  Then
+// every row is wild, every node WILD, no label is present in any chunk,
+// and every chunk pushes the literal +0.f: the binary-counter stack and
+// the lane fold add +0 to +0 only, so `float_block` returns +0.f and the
+// carry folds +0.f exactly as for a block the range test skipped.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -110,6 +140,7 @@ template <> struct Tier<PROCRASTINATE> {   // 6 exponent-bin planes
 struct Args {
   const void* values;   // (n_rows, PARTS * d), row-major
   const int* ids;       // (n_rows,) labels, absolute
+  const int2* ranges;   // (nb,) each schedule block's label range
   void* out0; void* out1; void* out2; void* out3;
   long long n_rows;
   int block_rows;       // B
@@ -119,9 +150,21 @@ struct Args {
   int lanes;            // float lane count (1 = dot form)
   int seg_tile;         // labels per CUDA block
   int col_tile;         // raw columns per CUDA block
-  int chunk_rows;       // rows staged in shared memory at a time (float
-                        // tiers: the tree chunk, a power of two)
+  int chunk_rows;       // float tiers: the tree chunk, a power of two
 };
+
+// The range of a schedule block with no label of [seg_offset,
+// seg_offset + num_segments): it meets no label tile.
+constexpr int NO_LO = 0x7fffffff;
+constexpr int NO_HI = -0x7fffffff - 1;
+// The pre-pass: one warp per schedule block.
+constexpr int RANGE_THREADS = 256;
+
+// lab in [lo, lo + count), without signed overflow
+__device__ __forceinline__ bool in_span(int lab, int lo, int count) {
+  return static_cast<unsigned>(lab) - static_cast<unsigned>(lo) <
+         static_cast<unsigned>(count);
+}
 
 __device__ __forceinline__ int wadd(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
@@ -245,15 +288,6 @@ __device__ float descend(const int* tlab, const float* tval, int C,
   }
 }
 
-template <typename In>
-__device__ __forceinline__ int load_bits(const In* p);
-template <>
-__device__ __forceinline__ int load_bits<float>(const float* p) {
-  return __float_as_int(*p);
-}
-template <>
-__device__ __forceinline__ int load_bits<int>(const int* p) { return *p; }
-
 // One touched schedule block's float contribution (rows [r0, r0 + B)) to
 // the carry cell (ty, tx); +0 for a thread outside the tile.  Every thread
 // of the CUDA block calls it: it synchronizes.  `present[s] == gen` marks
@@ -360,24 +394,134 @@ __device__ float float_block(const Args& a, long long r0, int base,
   return total;
 }
 
-template <int TIER, bool LANES>
+// The integer tiers' loads: VEC consecutive columns of one row, as one
+// 16-byte load where VEC is 4.
+template <int VEC, typename In>
+__device__ __forceinline__ void load_vec(const In* p, In (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    using V4 = typename std::conditional<std::is_same<In, float>::value,
+                                         float4, int4>::type;
+    const V4 q = *reinterpret_cast<const V4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+    static_assert(VEC == 1, "one or four columns a load");
+    v[0] = *p;
+  }
+}
+
+// A domain element as the int32 the contribution sums: exact2's domain is
+// f32 holding integers.
+template <int TIER, typename In>
+__device__ __forceinline__ int as_int(In x) {
+  if constexpr (TIER == EXACT2) {
+    return __float2int_rn(x);
+  } else {
+    return x;
+  }
+}
+
+// How a touched schedule block's rows are shared among the threads while
+// the integer tiers sum it: work item i is (run i / pieces, piece
+// i % pieces), a piece being VEC columns of one plane (plane-major,
+// `per_plane` pieces a plane) and a run `run_rows` consecutive rows.
+struct IntSplit {
+  int per_plane;
+  int pieces;
+  int items;
+  int run_rows;
+};
+
+// One touched schedule block's integer contribution (rows [r0, r0 + B))
+// to the label tile [base, base + tile_segs), added into the
+// (st x P x ct) int32 scratch `sc`.  A thread sums its rows in registers
+// while they carry one label of the tile and flushes the run where the
+// label changes and at the end; rows of no label of the tile (sentinels,
+// padding, rows past N, other tiles' labels) add nothing.
+template <int TIER, int VEC>
+__device__ __forceinline__ void int_block(const Args& a, long long r0,
+                                          int base, int tile_segs, int cols,
+                                          int d0, const IntSplit& sp,
+                                          int* sc) {
+  using T = Tier<TIER>;
+  constexpr int P = T::PARTS;
+  using In = typename T::In;
+  const In* vals = static_cast<const In*>(a.values);
+  const long long n = a.n_rows, W = static_cast<long long>(P) * a.d;
+  const int ct = a.col_tile, B = a.block_rows;
+  const int stride = P * ct;              // scratch words per label
+  // a label that is not in the tile, for the rows that load none
+  const int none = static_cast<int>(static_cast<unsigned>(base) - 1u);
+  for (int it = threadIdx.x; it < sp.items; it += blockDim.x) {
+    const int run = it / sp.pieces, piece = it - run * sp.pieces;
+    const int p = piece / sp.per_plane;
+    const int c = (piece - p * sp.per_plane) * VEC;
+    const bool col_ok = c < cols;         // a piece lies in or past cols
+    const In* src = vals + p * a.d + d0 + c;
+    int* cell = sc + p * ct + c;          // + label * stride
+    const int j1 = min(B, (run + 1) * sp.run_rows);
+    int cur = -1;                         // the run's tile-local label
+    int acc[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) acc[k] = 0;
+    auto flush = [&]() {
+      if (cur >= 0) {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k)
+          if (acc[k] != 0) atomicAdd(cell + cur * stride + k, acc[k]);
+      }
+    };
+    for (int j0 = run * sp.run_rows; j0 < j1; j0 += GROUP_ROWS) {
+      int lab[GROUP_ROWS];
+      In v[GROUP_ROWS][VEC];
+#pragma unroll
+      for (int u = 0; u < GROUP_ROWS; ++u) {    // every load before any use
+        const long long g = r0 + j0 + u;
+        lab[u] = none;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) v[u][k] = In(0);
+        if (j0 + u < j1 && g < n) {
+          lab[u] = a.ids[g];
+          if (col_ok) load_vec<VEC>(src + g * W, v[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < GROUP_ROWS; ++u) {
+        const int loc = static_cast<int>(static_cast<unsigned>(lab[u]) -
+                                         static_cast<unsigned>(base));
+        if (static_cast<unsigned>(loc) >= static_cast<unsigned>(tile_segs))
+          continue;
+        if (loc != cur) {
+          flush();
+          cur = loc;
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) acc[k] = 0;
+        }
+#pragma unroll
+        for (int k = 0; k < VEC; ++k)
+          acc[k] = wadd(acc[k], as_int<TIER>(v[u][k]));
+      }
+    }
+    flush();
+  }
+}
+
+template <int TIER, int VEC>
 __global__ void segsum_policy_kernel(Args a) {
   using T = Tier<TIER>;
   constexpr int P = T::PARTS;
   constexpr bool INT = T::INT;
-  using In = typename T::In;
   extern __shared__ int smem[];
   const int ct = a.col_tile, st = a.seg_tile, cr = a.chunk_rows;
-  int* flags = smem;                     // 32 schedule-block hit flags
-  int* present = flags + 32;             // st: label present in the block
-                                         // (float tiers: in the chunk)
-  // integer tiers
-  int* sid = present + st;               // cr: tile-local labels
-  int* sval = sid + cr;                  // cr * P * ct staged values
-  int* scratch = sval + cr * P * ct;     // st * P * ct int32 lane sums
-  // float tiers: a chunk's tree of 2 cr - 1 nodes
+  int* hits = smem;                      // 32 words: a window's touched
+                                         // schedule blocks, a bit each
+  // float tiers: label present in the chunk, and a chunk's tree of
+  // 2 cr - 1 nodes
+  int* present = hits + 32;
   int* tlab = present + st;              // each node's pure label
   float* tval = reinterpret_cast<float*>(tlab + 2 * cr - 1);  // x ct
+  // integer tiers: two (st x P x ct) int32 scratch buffers
+  int* scratch = hits + 32;
+  const int cells = st * P * ct;
 
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int tx = tid % ct, ty = tid / ct;
@@ -386,11 +530,9 @@ __global__ void segsum_policy_kernel(Args a) {
   const int cols = min(ct, a.d - d0);
   const bool active = ty < tile_segs && tx < cols;
   const int B = a.block_rows;
-  const long long n = a.n_rows;
-  const long long nb = (n + B - 1) / B;
-  const long long W = static_cast<long long>(P) * a.d;
+  const long long nb = (a.n_rows + B - 1) / B;
   const int base = a.seg_offset + seg0;
-  const In* vals = static_cast<const In*>(a.values);
+  const int last = base + tile_segs - 1;
   const int warp = tid >> 5, lane = tid & 31, nwarps = nthr >> 5;
 
   // the carry cell (segment seg0 + ty, column d0 + tx)
@@ -401,8 +543,19 @@ __global__ void segsum_policy_kernel(Args a) {
   for (int k = 0; k < (P > 1 ? P : 1); ++k) bins[k] = 0;
 
   int gen = 0;                           // float tiers: the chunk count
-  if (!INT)
+  IntSplit sp{0, 0, 0, 0};
+  if constexpr (INT) {
+    for (int e = tid; e < 2 * cells; e += nthr) scratch[e] = 0;
+    sp.per_plane = (ct + VEC - 1) / VEC;
+    sp.pieces = P * sp.per_plane;
+    const int runs = max(1, nthr / sp.pieces);
+    sp.items = runs * sp.pieces;
+    sp.run_rows = (B + runs - 1) / runs;
+  } else {
     for (int s = tid; s < st; s += nthr) present[s] = 0;
+  }
+  int buf = 0;                           // integer tiers: scratch in use
+  long long folded = 0;                  // float tiers: blocks folded so far
 
   auto float_update = [&](float c) {
     if (TIER == FAST) {
@@ -412,118 +565,67 @@ __global__ void segsum_policy_kernel(Args a) {
     }
   };
 
-  for (long long b0 = 0; b0 < nb; b0 += 32) {
-    // which of the next 32 schedule blocks hold a label of this tile
-    for (int j = warp; j < 32; j += nwarps) {
-      const long long blk = b0 + j;
-      int hit = 0;
-      if (blk < nb) {
-        const long long r1 = min(blk * B + B, n);
-        for (long long r = blk * B + lane; r < r1; r += 32) {
-          const int loc = a.ids[r] - base;
-          hit |= static_cast<unsigned>(loc) < static_cast<unsigned>(tile_segs);
-        }
-      }
-      hit = __any_sync(0xffffffffu, hit);
-      if (lane == 0) flags[j] = hit;
-    }
+  // windows of nthr schedule blocks: thread t tests block b0 + t
+  // (a thread past the last schedule block tests an empty range)
+  int2 ahead = tid < nb ? a.ranges[tid] : make_int2(NO_LO, NO_HI);
+  for (long long b0 = 0; b0 < nb; b0 += nthr) {
+    const int2 r = ahead;
+    const long long up = b0 + nthr + tid;
+    ahead = up < nb ? a.ranges[up] : make_int2(NO_LO, NO_HI);
+    const unsigned m = __ballot_sync(0xffffffffu, r.x <= last && r.y >= base);
+    if (lane == 0) hits[warp] = m;
     __syncthreads();
 
-    for (int j = 0; j < 32 && b0 + j < nb; ++j) {
-      if (!flags[j]) {
-        if (!INT && active) float_update(0.f);   // the plain fold of +0
-        continue;
-      }
-      const long long r0 = (b0 + j) * B;
-      if constexpr (!INT) {
-        const float c = float_block(a, r0, base, tile_segs, cols, d0, active,
-                                    ty, tx, present, gen, tlab, tval);
-        if (active) float_update(c);
-      } else {
-        for (int s = tid; s < st; s += nthr) present[s] = 0;
-        if (LANES) {
-          for (int e = tid; e < st * P * ct; e += nthr) scratch[e] = 0;
-        }
-        __syncthreads();
-        for (int r = tid; r < B; r += nthr) {
-          if (r0 + r < n) {
-            const int loc = a.ids[r0 + r] - base;
-            if (static_cast<unsigned>(loc) < static_cast<unsigned>(tile_segs))
-              present[loc] = 1;
-          }
-        }
-        __syncthreads();
-        const bool mine = active && present[ty];
-
-        int ctr[P];
-#pragma unroll
-        for (int p = 0; p < P; ++p) ctr[p] = 0;
-
-        for (int c0 = 0; c0 < B; c0 += cr) {
-          const int rows = min(cr, B - c0);
-          for (int r = tid; r < rows; r += nthr) {
-            const long long g = r0 + c0 + r;
-            sid[r] = g < n ? a.ids[g] - base : -1;
-          }
-          for (int e = tid; e < rows * P * ct; e += nthr) {
-            const int c = e % ct, p = (e / ct) % P, r = e / (ct * P);
-            const long long g = r0 + c0 + r;
-            sval[e] = (g < n && c < cols)
-                          ? load_bits<In>(vals + g * W + p * a.d + d0 + c)
-                          : 0;
-          }
+    for (int w = 0; w < nwarps; ++w) {
+      unsigned bits = hits[w];
+      while (bits) {
+        const long long blk = b0 + 32 * w + __ffs(bits) - 1;
+        bits &= bits - 1;
+        if constexpr (INT) {
+          int* sc = scratch + buf * cells;
+          int_block<TIER, VEC>(a, blk * B, base, tile_segs, cols, d0, sp,
+                               sc);
           __syncthreads();
-          if (LANES) {
-            for (int e = tid; e < rows * P * ct; e += nthr) {
-              const int loc = sid[e / (ct * P)];
-              int v = sval[e];
-              if (TIER == EXACT2) v = __float2int_rn(__int_as_float(v));
-              if (v != 0 &&
-                  static_cast<unsigned>(loc) < static_cast<unsigned>(tile_segs))
-                atomicAdd(&scratch[loc * P * ct + e % (P * ct)], v);
-            }
-          } else if (mine) {
-            for (int r = 0; r < rows; ++r) {
-              if (sid[r] == ty) {
+          if (active) {
+            int ctr[P];
 #pragma unroll
-                for (int p = 0; p < P; ++p) {
-                  int v = sval[(r * P + p) * ct + tx];
-                  if (TIER == EXACT2) v = __float2int_rn(__int_as_float(v));
-                  ctr[p] = wadd(ctr[p], v);
-                }
-              }
+            for (int p = 0; p < P; ++p) {
+              int* cell = sc + (ty * P + p) * ct + tx;
+              ctr[p] = *cell;
+              *cell = 0;
+            }
+            if (TIER == EXACT) {
+              iacc = wadd(iacc, ctr[0]);
+            } else if (TIER == EXACT2) {
+              int wb = 0;
+              hi = wrap_add(hi, ctr[0] >> 15, wb);
+              lo = wrap_add(lo, ctr[0] & 0x7fff, wb);
+#pragma unroll
+              for (int k = 1; k < P; ++k)
+                bins[k] = wrap_add(bins[k], ctr[k], wb);
+              ovf = wadd(ovf, wb);
+            } else {
+              int wb = 0;
+#pragma unroll
+              for (int k = 0; k < P; ++k)
+                bins[k] = wrap_add(bins[k], ctr[k], wb);
+              ovf = wadd(ovf, wb);
             }
           }
-          __syncthreads();
-        }
-
-        if (mine) {
-          if (LANES) {
-#pragma unroll
-            for (int p = 0; p < P; ++p)
-              ctr[p] = scratch[(ty * P + p) * ct + tx];
-          }
-          if (TIER == EXACT) {
-            iacc = wadd(iacc, ctr[0]);
-          } else if (TIER == EXACT2) {
-            int wb = 0;
-            hi = wrap_add(hi, ctr[0] >> 15, wb);
-            lo = wrap_add(lo, ctr[0] & 0x7fff, wb);
-#pragma unroll
-            for (int k = 1; k < P; ++k) bins[k] = wrap_add(bins[k], ctr[k], wb);
-            ovf = wadd(ovf, wb);
-          } else {
-            int wb = 0;
-#pragma unroll
-            for (int k = 0; k < P; ++k) bins[k] = wrap_add(bins[k], ctr[k], wb);
-            ovf = wadd(ovf, wb);
-          }
+          buf ^= 1;
+        } else {
+          if (active && blk > folded) float_update(0.f);  // skipped blocks
+          const float c = float_block(a, blk * B, base, tile_segs, cols, d0,
+                                      active, ty, tx, present, gen, tlab,
+                                      tval);
+          if (active) float_update(c);
+          folded = blk + 1;
         }
       }
-      __syncthreads();
     }
     __syncthreads();
   }
+  if (!INT && active && nb > folded) float_update(0.f);
 
   if (!active) return;
   const long long s = seg0 + ty;
@@ -551,27 +653,65 @@ __global__ void segsum_policy_kernel(Args a) {
   }
 }
 
+// Each schedule block's least and greatest label of [off, off + count)
+// into ranges[blk], (NO_LO, NO_HI) where it holds none; rows past n are
+// sentinels.
+__global__ void block_ranges_kernel(const int* ids, int2* ranges,
+                                    long long n, int B, long long nb,
+                                    int count, int off) {
+  const long long blk = static_cast<long long>(blockIdx.x) *
+                            (RANGE_THREADS / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (blk >= nb) return;                 // the whole warp
+  int lo = NO_LO, hi = NO_HI;
+  const long long r1 = min(blk * B + B, n);
+#pragma unroll 4
+  for (long long r = blk * B + lane; r < r1; r += 32) {
+    const int lab = ids[r];
+    if (in_span(lab, off, count)) {
+      lo = min(lo, lab);
+      hi = max(hi, lab);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  if (lane == 0) ranges[blk] = make_int2(lo, hi);
+}
+
+int ranges_launch(const int* ids, int2* ranges, long long n, int B,
+                  int count, int off, cudaStream_t stream) {
+  if (B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long nb = (n + B - 1) / B;
+  if (nb == 0) return 0;
+  constexpr int per = RANGE_THREADS / 32;
+  block_ranges_kernel<<<static_cast<unsigned>((nb + per - 1) / per),
+                        RANGE_THREADS, 0, stream>>>(ids, ranges, n, B, nb,
+                                                    count, off);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Bytes of dynamic shared memory; ops.py's `segsum_smem_bytes` mirrors it.
-size_t smem_bytes(const Args& a, int parts, bool int_lanes, bool float_tree) {
+size_t smem_bytes(const Args& a, int parts, bool float_tree) {
   if (float_tree)
     return (32 + a.seg_tile +
             (2 * static_cast<size_t>(a.chunk_rows) - 1) * (1 + a.col_tile)) * 4;
-  size_t words = 32 + a.seg_tile + a.chunk_rows +
-                 static_cast<size_t>(a.chunk_rows) * parts * a.col_tile;
-  if (int_lanes) words += static_cast<size_t>(a.seg_tile) * parts * a.col_tile;
-  return words * 4;
+  return (32 + 2 * static_cast<size_t>(a.seg_tile) * parts * a.col_tile) * 4;
 }
 
-template <int TIER, bool LANES>
+template <int TIER, int VEC>
 int launch(const Args& a, cudaStream_t stream) {
-  auto kern = segsum_policy_kernel<TIER, LANES>;
+  auto kern = segsum_policy_kernel<TIER, VEC>;
   constexpr bool float_tree = !Tier<TIER>::INT;
   // a float tier's tree chunk: a power of two of at most TREE_ROWS rows
   if (float_tree && (a.chunk_rows < 1 || a.chunk_rows > TREE_ROWS ||
                      (a.chunk_rows & (a.chunk_rows - 1))))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(a, Tier<TIER>::PARTS,
-                                 Tier<TIER>::INT && LANES, float_tree);
+  const int threads = ((a.col_tile * a.seg_tile + 31) / 32) * 32;
+  if (threads > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(a, Tier<TIER>::PARTS, float_tree);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -580,36 +720,59 @@ int launch(const Args& a, cudaStream_t stream) {
   }
   dim3 grid((a.d + a.col_tile - 1) / a.col_tile,
             (a.num_segments + a.seg_tile - 1) / a.seg_tile);
-  const int threads = ((a.col_tile * a.seg_tile + 31) / 32) * 32;
   kern<<<grid, threads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The integer tiers load four columns at a time where every piece of four
+// starts on 16 bytes: d, the column tile and the base address aligned.
 template <int TIER>
-int launch_form(const Args& a, int lanes_form, cudaStream_t stream) {
-  return lanes_form ? launch<TIER, true>(a, stream)
-                    : launch<TIER, false>(a, stream);
+int launch_tier(const Args& a, cudaStream_t stream) {
+  if constexpr (Tier<TIER>::INT) {
+    if (a.d % 4 == 0 && a.col_tile % 4 == 0 &&
+        reinterpret_cast<uintptr_t>(a.values) % 16 == 0)
+      return launch<TIER, 4>(a, stream);
+  }
+  return launch<TIER, 1>(a, stream);
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for an unknown tier.
+// The pre-pass alone: each schedule block's label range into `ranges`
+// ((nb, 2) int32).  Returns cudaGetLastError() after the launch.
+extern "C" int block_ranges_launch(const void* ids, void* ranges,
+                                   long long n_rows, int block_rows,
+                                   int num_segments, int seg_offset,
+                                   void* stream) {
+  return ranges_launch(static_cast<const int*>(ids),
+                       static_cast<int2*>(ranges), n_rows, block_rows,
+                       num_segments, seg_offset,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// K1: the pre-pass into `ranges` ((nb, 2) int32 scratch), then the block
+// schedule, on one stream.  Returns cudaGetLastError() after the
+// launches (0 = launched), or cudaErrorInvalidValue for an unknown tier.
 extern "C" int segsum_policy_launch(
-    int tier, int lanes_form, const void* values, const void* ids,
+    int tier, const void* values, const void* ids, void* ranges,
     void* out0, void* out1, void* out2, void* out3, long long n_rows,
     int block_rows, int num_segments, int seg_offset, int d, int lanes,
     int seg_tile, int col_tile, int chunk_rows, void* stream) {
-  Args a{values, static_cast<const int*>(ids), out0, out1, out2, out3,
+  Args a{values, static_cast<const int*>(ids),
+         static_cast<const int2*>(ranges), out0, out1, out2, out3,
          n_rows, block_rows, num_segments, seg_offset, d, lanes,
          seg_tile, col_tile, chunk_rows};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tier < FAST || tier > PROCRASTINATE)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = ranges_launch(a.ids, static_cast<int2*>(ranges), n_rows,
+                               block_rows, num_segments, seg_offset, s);
+  if (rc != 0) return rc;
   switch (tier) {
-    case FAST: return launch_form<FAST>(a, lanes_form, s);
-    case COMPENSATED: return launch_form<COMPENSATED>(a, lanes_form, s);
-    case EXACT: return launch_form<EXACT>(a, lanes_form, s);
-    case EXACT2: return launch_form<EXACT2>(a, lanes_form, s);
-    case PROCRASTINATE: return launch_form<PROCRASTINATE>(a, lanes_form, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case FAST: return launch_tier<FAST>(a, s);
+    case COMPENSATED: return launch_tier<COMPENSATED>(a, s);
+    case EXACT: return launch_tier<EXACT>(a, s);
+    case EXACT2: return launch_tier<EXACT2>(a, s);
+    default: return launch_tier<PROCRASTINATE>(a, s);
   }
 }

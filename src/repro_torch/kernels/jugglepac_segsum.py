@@ -16,6 +16,12 @@ Two implementations of one function live here:
     (``program.block_contrib``) and fold (``Policy.update``) the ``ref``
     executor runs block by block.
 
+K1 launches two CUDA kernels on one stream: a pre-pass that writes each
+schedule block's label range, which ``block_label_ranges_torch`` computes
+plainly (``block_label_ranges_cuda`` launches the pre-pass alone, for
+checks), and the block schedule, which loads only the schedule blocks
+whose range meets its label tile.
+
 The backend registry (``repro_torch.reduce.backends``) picks between
 them by device.  The kernel never falls back: a failed build or launch
 raises.
@@ -51,6 +57,52 @@ _IN_DTYPES = {"fast": torch.float32, "compensated": torch.float32,
 #: carry cells (S x W) a batch of gathered contributions may hold
 _CONTRIB_ELEMS = 1 << 24
 
+#: the range of a schedule block with none of the labels
+NO_RANGE = (2 ** 31 - 1, -2 ** 31)
+
+
+def block_label_ranges_torch(ids: torch.Tensor, block_rows: int,
+                             num_segments: int,
+                             seg_offset: int = 0) -> torch.Tensor:
+    """The plain version of K1's pre-pass: ids (N,) -> (nb, 2) int32,
+    each schedule block's least and greatest label of
+    [seg_offset, seg_offset + num_segments), ``NO_RANGE`` where it holds
+    none.  Rows past N (the ragged last block) are sentinels."""
+    ids = ids.to(torch.int64).reshape(-1)
+    n = ids.shape[0]
+    nb = -(-n // block_rows)
+    pad = nb * block_rows - n
+    keep = (ids >= seg_offset) & (ids < seg_offset + num_segments)
+    lo = torch.where(keep, ids, torch.full_like(ids, NO_RANGE[0]))
+    hi = torch.where(keep, ids, torch.full_like(ids, NO_RANGE[1]))
+    lo = torch.cat([lo, lo.new_full((pad,), NO_RANGE[0])])
+    hi = torch.cat([hi, hi.new_full((pad,), NO_RANGE[1])])
+    return torch.stack([lo.reshape(nb, block_rows).amin(1),
+                        hi.reshape(nb, block_rows).amax(1)], 1) \
+        .to(torch.int32)
+
+
+def block_label_ranges_cuda(ids: torch.Tensor, block_rows: int,
+                            num_segments: int,
+                            seg_offset: int = 0) -> torch.Tensor:
+    """K1's pre-pass alone, on a contiguous int32 CUDA tensor of labels:
+    the same (nb, 2) int32 ranges as ``block_label_ranges_torch``."""
+    from . import _build
+    if not ids.is_cuda or ids.dtype != torch.int32 or ids.ndim != 1 \
+            or not ids.is_contiguous():
+        raise ValueError("block_label_ranges_cuda needs a contiguous (N,) "
+                         f"int32 CUDA tensor; got {ids.dtype} "
+                         f"{tuple(ids.shape)} on {ids.device}")
+    nb = -(-ids.shape[0] // block_rows)
+    ranges = torch.empty((nb, 2), dtype=torch.int32, device=ids.device)
+    rc = _build.load("segsum").block_ranges_launch(
+        ids.data_ptr(), ranges.data_ptr(), ids.shape[0], block_rows,
+        num_segments, seg_offset,
+        torch.cuda.current_stream(ids.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K1 pre-pass launch failed: CUDA error {rc}")
+    return ranges
+
 
 def segsum_policy_torch(values: torch.Tensor, ids: torch.Tensor,
                         num_segments: int, *, policy, program=None,
@@ -77,13 +129,11 @@ def segsum_policy_torch(values: torch.Tensor, ids: torch.Tensor,
     return carry
 
 
-def launch_shape(policy, num_segments: int, width: int, program=None):
+def launch_shape(policy, num_segments: int, width: int):
     """(col_tile, seg_tile, grid) of one K1 launch."""
     d = width // policy.parts
-    int_lanes = policy.integer and program is not None \
-        and program.contrib == "lanes"
     ct = ops.col_tile_for(d)
-    st = ops.seg_tile_for(num_segments, d, policy.parts, int_lanes=int_lanes,
+    st = ops.seg_tile_for(num_segments, d, policy.parts,
                           float_tree=not policy.integer)
     grid = (-(-d // ct), -(-num_segments // st))
     return ct, st, grid
@@ -123,13 +173,14 @@ def segsum_policy_cuda(values: torch.Tensor, ids: torch.Tensor,
         return tuple(c.zero_() for c in carry)
     lanes_form = program is not None and program.contrib == "lanes"
     nl = len(lane_bounds(block_rows, program.lanes if lanes_form else 1)) - 1
-    ct, st, _ = launch_shape(policy, num_segments, w, program)
-    chunk = ops.CHUNK_ROWS if policy.integer \
-        else ops.tree_rows_for(block_rows, nl)
+    ct, st, _ = launch_shape(policy, num_segments, w)
+    chunk = 0 if policy.integer else ops.tree_rows_for(block_rows, nl)
+    ranges = torch.empty((-(-n // block_rows), 2), dtype=torch.int32,
+                         device=values.device)
     ptrs = [c.data_ptr() for c in carry] + [None] * (4 - len(carry))
     lib = _build.load("segsum")
     rc = lib.segsum_policy_launch(
-        _TIERS[name], int(lanes_form), values.data_ptr(), ids.data_ptr(),
+        _TIERS[name], values.data_ptr(), ids.data_ptr(), ranges.data_ptr(),
         *ptrs, n, block_rows, num_segments, seg_offset, w // policy.parts,
         nl, st, ct, chunk,
         torch.cuda.current_stream(values.device).cuda_stream)

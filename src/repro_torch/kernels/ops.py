@@ -16,12 +16,13 @@ kernel's plain version.  Without CUDA, ``device=None`` raises.
 tile so that all carries of the tile fit an 8 MiB VMEM budget, one tile
 per kernel call.  On the H100 a CUDA block holds one carry cell per
 thread, in registers, so the label tile of one CUDA block is bounded by
-its thread count (``BLOCK_THREADS``) and by what its shared memory must
-hold beside: for the integer tiers the staged rows of a chunk and, for
-the lane form, an int32 scratch of the tile's contributions; for the
-float tiers a chunk's pairwise tree (``tree_rows_for``) — within the
-227 KB (232,448 bytes) a Hopper block may use.  The label tiles are the
-grid's y dimension, so one launch covers the whole label space.
+its thread count and by what its shared memory must hold beside: for the
+float tiers a chunk's pairwise tree (``tree_rows_for``), with
+``BLOCK_THREADS`` threads; for the integer tiers two int32 scratch
+buffers of the tile's contribution, with ``INT_THREADS`` threads, fewer
+so that several CUDA blocks share an SM — within the 227 KB (232,448
+bytes) a Hopper block may use.  The label tiles are the grid's y
+dimension, so one launch covers the whole label space.
 """
 
 from __future__ import annotations
@@ -42,13 +43,14 @@ from .flash_decode import (NEG, flash_decode_cuda, flash_decode_paged_cuda,
                            flash_decode_partial_torch, flash_decode_torch)
 from .intac_accum import intac_accum_cuda, intac_accum_torch
 
-#: threads of one CUDA block: one carry cell (segment, column) each
+#: threads of one CUDA block of the float tiers: one carry cell
+#: (segment, column) each
 BLOCK_THREADS = 512
+#: threads of one CUDA block of the integer tiers: one carry cell each
+#: while folding, a share of a schedule block's rows while summing it
+INT_THREADS = 256
 #: raw columns per CUDA block: 16 consecutive floats, 64-byte row pieces
 COL_TILE = 16
-#: rows of a schedule block staged in shared memory at a time (integer
-#: tiers)
-CHUNK_ROWS = 64
 #: padded rows of a float tier's tree chunk, at most (``TREE_ROWS`` in
 #: ``csrc/segsum.cu``)
 TREE_ROWS = 512
@@ -68,34 +70,32 @@ def tree_rows_for(block_rows: int, lanes: int = 1) -> int:
 
 
 def segsum_smem_bytes(seg_tile: int, col_tile: int, parts: int,
-                      int_lanes: bool, chunk_rows: int = CHUNK_ROWS, *,
-                      float_tree: bool = False) -> int:
+                      tree_rows: int = 0) -> int:
     """Dynamic shared memory of one CUDA block of K1 (mirrors
-    ``smem_bytes`` in ``csrc/segsum.cu``): hit flags, label-present
-    flags, then for the integer tiers the staged labels and values of a
-    chunk and the int32 lane scratch, for the float tiers
-    (``float_tree``) a chunk's tree of ``2 * chunk_rows - 1`` nodes: one
-    label and ``col_tile`` values each."""
-    if float_tree:
-        return 4 * (32 + seg_tile + (2 * chunk_rows - 1) * (1 + col_tile))
-    words = 32 + seg_tile + chunk_rows + chunk_rows * parts * col_tile
-    if int_lanes:
-        words += seg_tile * parts * col_tile
-    return 4 * words
+    ``smem_bytes`` in ``csrc/segsum.cu``): 32 words of touched-block
+    bits, then for the float tiers (``tree_rows`` > 0) the label-present
+    flags and a chunk's tree of ``2 * tree_rows - 1`` nodes, one label
+    and ``col_tile`` values each; for the integer tiers two int32
+    scratch buffers of ``seg_tile x parts x col_tile`` cells."""
+    if tree_rows:
+        return 4 * (32 + seg_tile + (2 * tree_rows - 1) * (1 + col_tile))
+    return 4 * (32 + 2 * seg_tile * parts * col_tile)
 
 
 def seg_tile_for(num_segments: int, d: int, parts: int = 1, *,
-                 int_lanes: bool = True, float_tree: bool = False) -> int:
-    """Labels per CUDA block: as many as the block has threads for, one
-    per carry cell of the ``col_tile_for(d)`` columns, halved until the
-    block's shared memory fits ``SMEM_BYTES`` (for the float tiers, with
-    a tree chunk of ``TREE_ROWS``, the largest any block size gives)."""
+                 float_tree: bool = False) -> int:
+    """Labels per CUDA block: one per carry cell of the
+    ``col_tile_for(d)`` columns for each of the block's threads
+    (``BLOCK_THREADS`` for the float tiers, ``INT_THREADS`` for the
+    integer ones), halved until the block's shared memory fits
+    ``SMEM_BYTES`` (for the float tiers, with a tree chunk of
+    ``TREE_ROWS``, the largest any block size gives)."""
     ct = col_tile_for(d)
-    chunk = TREE_ROWS if float_tree else CHUNK_ROWS
-    tile = max(1, min(int(num_segments), BLOCK_THREADS // ct))
-    while tile > 1 and segsum_smem_bytes(
-            tile, ct, parts, int_lanes, chunk,
-            float_tree=float_tree) > SMEM_BYTES:
+    threads = BLOCK_THREADS if float_tree else INT_THREADS
+    tree = TREE_ROWS if float_tree else 0
+    tile = max(1, min(int(num_segments), threads // ct))
+    while tile > 1 and segsum_smem_bytes(tile, ct, parts,
+                                         tree) > SMEM_BYTES:
         tile //= 2
     return tile
 

@@ -111,6 +111,87 @@ def test_cuda_float_tree_bitwise_on_runs(policy, cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("block", (64, 96, 512, 4096))
+def test_cuda_block_ranges_bitwise_plain(block, cuda):
+    """K1's pre-pass alone against ``block_label_ranges_torch``: a ragged
+    N, labels outside the label space and the int32 extremes, an
+    all-sentinel block, the whole space and a window at an offset."""
+    rng = np.random.RandomState(block)
+    n = 4 * block + block // 2 + 1
+    ids = rng.randint(-5, 45, n).astype(np.int32)
+    ids[block:2 * block] = -1
+    ids[0], ids[-1] = -2 ** 31, 2 ** 31 - 1
+    tids = torch.tensor(ids, device=cuda)
+    for off, s in ((0, 40), (7, 13)):
+        got = K.block_label_ranges_cuda(tids, block, s, off)
+        want = K.block_label_ranges_torch(tids, block, s, off)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (off, s)
+
+
+def _int_case(case, policy, device):
+    """(domain, ids, num_segments, seg_offset, block) of one integer-tier
+    case; see ``test_cuda_int_tiers_bitwise_plain``."""
+    rng = np.random.RandomState(31)
+    pol = get_policy(policy)
+    n, d, s, off, block = 4000, 16, S, 0, 512
+    if case == "random":
+        n, d, s = 20000, 64, 4096
+    elif case in ("d20", "d18"):
+        d, block = int(case[1:]), 128
+    elif case == "ragged":
+        n, block = 3 * 4096 + 1234, 4096
+    elif case == "offset":
+        s, off, block = 16, 24, 128
+    space = 40 if case == "offset" else s
+    if case in ("d20", "d18", "ragged"):
+        vals, ids = _runs_stream(14, n, d, s, block)
+    else:
+        vals, ids = _stream(15, n, d, space)
+    if case == "wrap":       # half the entries near +-2^30: sums wrap
+        w = pol.parts * d
+        near = (2 ** 30 - 64 * rng.randint(0, 1024, (n, w))) \
+            * rng.choice([-1, 1], (n, w))
+        dom = np.where(rng.rand(n, w) < 0.5, near,
+                       rng.randint(-2 ** 20, 2 ** 20, (n, w)))
+        dom = torch.tensor(dom.astype(np.float32 if policy == "exact2"
+                                      else np.int32), device=device)
+    else:
+        dom, _ = pol.prepare(torch.tensor(vals, device=device), n)
+    return dom, torch.tensor(ids, device=device), s, off, block
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ("wrap", "random", "d20", "d18", "ragged",
+                                  "offset"))
+@pytest.mark.parametrize("policy", ("exact", "exact2", "procrastinate"))
+def test_cuda_int_tiers_bitwise_plain(policy, case, cuda):
+    """The integer tiers' register runs, every carry component bitwise:
+    ``wrap`` a domain near +-2^30 whose ``ovf`` ends nonzero; ``random``
+    labels at S=4,096, D=64 (every block touches every label tile);
+    ``d20`` a ragged 4-column tile of 16-byte loads; ``d18`` the scalar
+    loads; ``ragged`` N at B=4,096; ``offset`` a label window at 24."""
+    pol = get_policy(policy)
+    dom, tids, s, off, block = _int_case(case, policy, cuda)
+    pad = (-len(tids)) % block
+    pdom = torch.cat([dom, dom.new_zeros((pad, dom.shape[1]))])
+    pids = torch.cat([tids, tids.new_full((pad,), -1)])
+    for contrib in ("dot", "lanes"):
+        prog = plan_program(pol, num_segments=s, domain_width=dom.shape[1],
+                            block_size=block, contrib=contrib)
+        plain = K.segsum_policy_torch(pdom, pids, s, policy=pol,
+                                      program=prog, block_rows=block,
+                                      seg_offset=off)
+        kern = K.segsum_policy_cuda(dom, tids, s, policy=pol, program=prog,
+                                    block_rows=block, seg_offset=off)
+        torch.cuda.synchronize()
+        for a, b in zip(plain, kern):
+            assert torch.equal(a, b), (policy, case, contrib)
+    if case == "wrap" and policy != "exact":
+        assert kern[-1].any()
+
+
+@pytest.mark.cuda
 def test_reduce_runs_on_the_card_by_default(cuda):
     """``device=None`` means the card: the result lives there, K1 ran, and
     it equals the plain ``blocked`` executor's bits for every tier."""

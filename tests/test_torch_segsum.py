@@ -145,29 +145,173 @@ def test_cuda_wrapper_refuses_cpu_tensors():
                                        (100000, 3, 2)])
 def test_label_tile_fits_the_block(s, d, parts):
     ct = ops.col_tile_for(d)
-    for int_lanes in (False, True):
-        st = ops.seg_tile_for(s, d, parts, int_lanes=int_lanes)
-        assert 1 <= st <= s and st * ct <= ops.BLOCK_THREADS
-        assert ops.segsum_smem_bytes(st, ct, parts, int_lanes) \
-            <= ops.SMEM_BYTES
+    # the integer tiers: INT_THREADS carry cells, two scratch buffers
+    st = ops.seg_tile_for(s, d, parts)
+    assert 1 <= st <= s and st * ct <= ops.INT_THREADS
+    assert ops.segsum_smem_bytes(st, ct, parts) <= ops.SMEM_BYTES
     # the float tiers (one plane) hold a chunk's tree instead
-    st = ops.seg_tile_for(s, d, 1, int_lanes=False, float_tree=True)
+    st = ops.seg_tile_for(s, d, 1, float_tree=True)
     assert 1 <= st <= s and st * ct <= ops.BLOCK_THREADS
     for block in (512, 4096):
         for lanes in (1, 4):
             chunk = ops.tree_rows_for(block, lanes)
             assert chunk == min(block // lanes, ops.TREE_ROWS)
-            assert ops.segsum_smem_bytes(st, ct, 1, False, chunk,
-                                         float_tree=True) <= ops.SMEM_BYTES
+            assert ops.segsum_smem_bytes(st, ct, 1, chunk) <= ops.SMEM_BYTES
 
 
 def test_main_path_launch_shape():
-    """The main path's shapes: 1,024 labels, 64 columns, exact2's eight
-    planes -> 4 column tiles x 32 label tiles of 32 labels."""
-    ct, st, grid = K.launch_shape(t_policy("exact2"), 1024, 8 * 64,
-                                  t_plan("exact2", num_segments=1024,
-                                         domain_width=512))
-    assert (ct, st, grid) == (16, 32, (4, 32))
+    """The main path's shapes: 1,024 labels, 64 columns -> 4 column
+    tiles; exact2's eight planes in 64 label tiles of 16 labels
+    (256 threads), the float tiers in 32 tiles of 32 (512 threads)."""
+    ct, st, grid = K.launch_shape(t_policy("exact2"), 1024, 8 * 64)
+    assert (ct, st, grid) == (16, 16, (4, 64))
+    assert K.launch_shape(t_policy("fast"), 1024, 64) == (16, 32, (4, 32))
+
+
+def _ranges_loop(ids, block, s, off):
+    """Each block's least and greatest label of [off, off + s), row by
+    row; rows past len(ids) are sentinels."""
+    nb = -(-len(ids) // block)
+    out = np.empty((nb, 2), np.int64)
+    for b in range(nb):
+        lo, hi = 2 ** 31 - 1, -2 ** 31
+        for lab in ids[b * block:(b + 1) * block]:
+            if off <= lab < off + s:
+                lo, hi = min(lo, int(lab)), max(hi, int(lab))
+        out[b] = lo, hi
+    return out.astype(np.int32)
+
+
+@pytest.mark.parametrize("block", (64, 96, 512, 4096))
+def test_block_label_ranges_match_numpy_loop(block):
+    """K1's pre-pass, plainly: a ragged N, labels outside the label space
+    (and the int32 extremes), an all-sentinel block, a block of only
+    out-of-space labels, the whole space and a window at an offset."""
+    rng = np.random.RandomState(block)
+    s_all = 40
+    n = 4 * block + block // 2 + 1
+    ids = rng.randint(-5, s_all + 5, n).astype(np.int32)
+    ids[block:2 * block] = -1
+    ids[2 * block:3 * block] = s_all + 3
+    ids[0], ids[-1] = -2 ** 31, 2 ** 31 - 1
+    for off, s in ((0, s_all), (7, 13), (0, 1)):
+        got = K.block_label_ranges_torch(torch.tensor(ids), block, s, off)
+        want = _ranges_loop(ids, block, s, off)
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy(), want), (off, s)
+    assert np.array_equal(
+        K.block_label_ranges_torch(torch.tensor(ids), block, s_all)[1],
+        np.array(K.NO_RANGE, np.int32))
+
+
+# ---------------------------------------------------------------------------
+# The kernel's integer path, emulated
+# ---------------------------------------------------------------------------
+
+
+def _wrap_add(a, b):
+    """intac.wrap_add on int32 arrays: the wrapped sum and its flags."""
+    s = a + b
+    return s, (((a ^ s) & (b ^ s)) < 0).astype(np.int32)
+
+
+def _int_fold(policy, carry, c, d):
+    """One touched block's fold of the tile's int32 contribution c
+    (tile_segs, P * d) into the carry, cell by cell as the kernel does."""
+    if policy == "exact":
+        return [carry[0] + c]
+    if policy == "exact2":
+        hi, lo, rb, ovf = carry
+        hi, w1 = _wrap_add(hi, c[:, :d] >> 15)
+        lo, w2 = _wrap_add(lo, c[:, :d] & 0x7fff)
+        rb, w3 = _wrap_add(rb, c[:, d:])
+        return [hi, lo, rb, ovf + w1 + w2 + w3.reshape(len(c), -1, d).sum(1,
+                                                                 dtype=np.int32)]
+    bins, ovf = carry
+    bins, w = _wrap_add(bins, c)
+    return [bins, ovf + w.reshape(len(c), -1, d).sum(1, dtype=np.int32)]
+
+
+def _kernel_int_carry(policy, dom, ids, block, s_all, tile0, tile_segs,
+                      runs):
+    """The kernel's integer path for one label tile: the range test on the
+    pre-pass's ranges, then for each touched block `runs` row runs, each
+    summed in registers (wrapping int32) while consecutive rows carry one
+    label of the tile and flushed into the scratch where the label
+    changes and at the end; then every touched block folds, zero
+    included."""
+    pol = t_policy(policy)
+    n, w = dom.shape
+    d = w // pol.parts
+    vals = dom.astype(np.int32) if dom.dtype == np.float32 else dom
+    ranges = K.block_label_ranges_torch(torch.tensor(ids), block,
+                                        s_all).numpy()
+    carry = [c.numpy() for c in pol.init(tile_segs, w)]
+    run_rows = -(-block // runs)
+    for b, (lo, hi) in enumerate(ranges):
+        if not (lo <= tile0 + tile_segs - 1 and hi >= tile0):
+            continue
+        scratch = np.zeros((tile_segs, w), np.int32)
+        for r in range(runs):
+            cur, acc = -1, None
+            for g in range(b * block + r * run_rows,
+                           b * block + min(block, (r + 1) * run_rows)):
+                loc = int(ids[g]) - tile0
+                if not 0 <= loc < tile_segs:
+                    continue
+                if loc != cur:
+                    if cur >= 0:
+                        scratch[cur] += acc
+                    cur, acc = loc, np.zeros(w, np.int32)
+                acc += vals[g]
+            if cur >= 0:
+                scratch[cur] += acc
+        carry = _int_fold(policy, carry, scratch, d)
+    return carry
+
+
+def _wrapping_domain(policy, n, d, rng):
+    """A domain of the tier's dtype and width where half the entries lie
+    near +-2^30: block sums and carries wrap."""
+    w = t_policy(policy).parts * d
+    big = rng.rand(n, w) < 0.5
+    near = (2 ** 30 - 64 * rng.randint(0, 1024, (n, w))) \
+        * rng.choice([-1, 1], (n, w))
+    vals = np.where(big, near, rng.randint(-2 ** 20, 2 ** 20, (n, w)))
+    return vals.astype(np.float32 if policy == "exact2" else np.int32)
+
+
+@pytest.mark.parametrize("layout", ("runs", "random", "sentinel_runs",
+                                    "other_tiles", "sentinel"))
+@pytest.mark.parametrize("block", (64, 96, 512))
+@pytest.mark.parametrize("policy", INT_POLICIES)
+def test_kernel_int_path_emulation_bitwise_update(policy, block, layout):
+    """Register runs and flushes, any split of the rows, untouched blocks
+    skipped and touched ones folded unconditionally: bitwise
+    ``block_contrib`` then ``Policy.update``, ``ovf`` included, for the
+    whole label space and for a tile of it.  Block 1 is all sentinel;
+    ``other_tiles`` blocks hold no label of the tile (2..4) but span it."""
+    rng = np.random.RandomState(block + len(layout))
+    s_all, d, nb = 8, 2, 4
+    ids = np.concatenate([
+        _layout_ids("sentinel" if k == 1 else
+                    "runs" if layout == "other_tiles" else layout,
+                    block, s_all, rng) for k in range(nb)])
+    if layout == "other_tiles":
+        ids[(ids >= 2) & (ids < 5)] += 3
+    dom = _wrapping_domain(policy, nb * block, d, rng)
+    for tile0, tile_segs in ((0, s_all), (2, 3)):
+        want = K.segsum_policy_torch(torch.tensor(dom), torch.tensor(ids),
+                                     tile_segs, policy=t_policy(policy),
+                                     block_rows=block, seg_offset=tile0)
+        for runs in (1, 3, 32):
+            got = _kernel_int_carry(policy, dom, ids, block, s_all, tile0,
+                                    tile_segs, runs)
+            assert len(got) == len(want)
+            for a, b in zip(got, want):
+                assert np.array_equal(a, b.numpy()), (tile0, runs)
+        if tile0 == 0 and policy != "exact" and layout != "sentinel":
+            assert want[-1].any()          # the carry wrapped: ovf != 0
 
 
 # ---------------------------------------------------------------------------
@@ -291,6 +435,26 @@ def _adversarial_vals(ids, w, rng):
     vals[(u >= 0.1) & (u < 0.2)] = 0.0
     vals[ids == ids.max()] = -0.0
     return vals.astype(np.float32)
+
+
+@pytest.mark.parametrize("policy", ("fast", "compensated"))
+def test_float_fold_of_zero_is_idempotent(policy):
+    """The kernel folds one +0 for a run of schedule blocks that hold none
+    of a tile's labels, where the plain version folds +0 once per block:
+    the same bits, since ``Policy.update`` with +0 twice is once, for
+    every carry part in {+-0, +-subnormal, +-1.5, +-max, +-inf, NaN}."""
+    pol = t_policy(policy)
+    vals = torch.tensor([0.0, -0.0, 1e-45, -1e-45, 1.5, -1.5, 3.4e38,
+                         -3.4e38, float("inf"), float("-inf"),
+                         float("nan")], dtype=torch.float32)
+    parts = torch.meshgrid(*[vals] * pol.carry_len, indexing="ij")
+    carry = tuple(c.reshape(-1, 1) for c in parts)
+    zero = torch.zeros_like(carry[0])
+    once = pol.update(carry, zero)
+    twice = pol.update(once, zero)
+    for a, b in zip(once, twice):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert not torch.signbit(once[0][carry[0] == 0]).any()
 
 
 @pytest.mark.parametrize("layout", ("runs", "random", "sentinel_runs",
