@@ -34,20 +34,26 @@ KV rows, and at N=32,768 x D=6,144 for INTAC.  All data is drawn from
    alone); K1 exact on a shuffled copy of the labels; the pre-pass
    bitwise at the main path's size;
 6. decode, kernel against plain — K2, K3 and K4 bitwise against their
-   plain versions at (B, H, K, S, d) = (3, 8, 2, 1,000, 64) and at full
+   plain versions at (B, H, K, S, d) = (3, 8, 2, 1,000, 64), K2 and K4
+   also at split_rows 128, 384 and 1,024 (per = 1 and > 1, dead splits
+   at both ends with window 200, a request with kv_len 0), and at full
    width;
 7. decode, full width — ``flash_decode`` (block_kv=512, window None and
    4,096), ``partial_chunks=4`` and ``flash_decode_paged`` (ps=256, a
    shuffled ``PagedKVPool``), each within its stated bound of a float64
    materialized softmax and launching its kernel once (counts reset just
    before each call, read just after); the paged result bitwise equal to
-   ``flash_decode(block_kv=256)`` on the assembled cache;
+   ``flash_decode(block_kv=256)`` on the assembled cache; three requests
+   bitwise the same alone as in the batch (window None and 4,096);
+   ``flash_decode`` bitwise ``partial_chunks=C`` where no split is dead;
+   per path: C, the computed splits and the split-pass CUDA blocks;
 8. INTAC — ``intac_accum`` launching K5 once, bitwise against its plain
    version, against an int64 column sum of the quantized values, and
    across block_rows 64 and 256;
 9. decode and INTAC timings — each kernel and its wrapper, the plain
    version, and one PyTorch call computing the same function where there
-   is one (``scaled_dot_product_attention`` for K2).
+   is one (``scaled_dot_product_attention`` for K2); K2 at window 4,096
+   timed apart.
 
 Times are CUDA-event medians after a warm-up (plain versions: one
 host-clock run); the bound is the least time the card could take, bytes
@@ -347,14 +353,32 @@ def decode_phases(seed, dev, smi):
                       f"{window} {kw}: max|kernel-plain|={err:g} "
                       f"{'bitwise' if ok else 'DIFFER'}", flush=True)
                 check(ok, f"{name} kernel differs from its plain version")
-    pbias = ops.length_bias(kv_len, 8 * 128, None, dev)
-    ok, err = same(fd.flash_decode_paged_cuda(q, kp, vp, pbias, tables,
-                                              sm_scale=sc),
-                   fd.flash_decode_paged_torch(q, kp, vp, pbias, tables,
-                                               sm_scale=sc))
-    print(f"check paged   (3, 8, 2, 1024, 64) ps=128: max|kernel-plain|="
-          f"{err:g} {'bitwise' if ok else 'DIFFER'}", flush=True)
-    check(ok, "paged kernel differs from its plain version")
+    # K2 and K4's splits: per = 1 (split_rows 128 at block 256 and 512,
+    # ps 128) and > 1, dead splits at both ends (window 200), kv_len 0
+    for window in (None, 200):
+        pbias = ops.length_bias(kv_len, 8 * 128, window, dev)
+        bias = ops.length_bias(kv_len, s_len, window, dev)
+        for rows in (128, 384, 1024):
+            for block in (128, 256):
+                ok, err = same(fd.flash_decode_cuda(
+                    q, k, v, bias, sm_scale=sc, block_kv=block,
+                    split_rows=rows), fd.flash_decode_torch(
+                    q, k, v, bias, sm_scale=sc, block_kv=block,
+                    split_rows=rows))
+                print(f"check dense   (3, 8, 2, 1000, 64) window={window} "
+                      f"block_kv={block} split_rows={rows} (per "
+                      f"{fd.split_shape(-(-s_len // block), block, rows)[0]}"
+                      f"): max|kernel-plain|={err:g} "
+                      f"{'bitwise' if ok else 'DIFFER'}", flush=True)
+                check(ok, "dense kernel differs from its plain version")
+            ok, err = same(fd.flash_decode_paged_cuda(
+                q, kp, vp, pbias, tables, sm_scale=sc, split_rows=rows),
+                fd.flash_decode_paged_torch(q, kp, vp, pbias, tables,
+                                            sm_scale=sc, split_rows=rows))
+            print(f"check paged   (3, 8, 2, 1024, 64) ps=128 window="
+                  f"{window} split_rows={rows}: max|kernel-plain|={err:g} "
+                  f"{'bitwise' if ok else 'DIFFER'}", flush=True)
+            check(ok, "paged kernel differs from its plain version")
     del q, kp, vp, k, v
 
     # full width: a shuffled pool at ps=256 and its assembled dense cache
@@ -449,6 +473,44 @@ def decode_phases(seed, dev, smi):
     check(ok, "paged result differs from flash_decode(block_kv=256)")
     del outs, dense256
 
+    # 7. batch independence and the partial_chunks equality on the card
+    for window in (None, WINDOW):
+        batch = ops.flash_decode(q, k, v, kv_len, sm_scale=sc,
+                                 window=window, block_kv=512)
+        for bi in (0, 3, b - 1):
+            alone = ops.flash_decode(q[bi:bi + 1], k[bi:bi + 1],
+                                     v[bi:bi + 1], kv_len[bi:bi + 1],
+                                     sm_scale=sc, window=window,
+                                     block_kv=512)
+            ok = torch.equal(alone[0], batch[bi])
+            print(f"main request {bi} (kv_len {int(kv_len[bi])}) window="
+                  f"{window}: alone vs in the batch "
+                  f"{'bitwise' if ok else 'DIFFER'}", flush=True)
+            check(ok, "a request's output depends on its batch")
+    ngrp = (h // kh) // fd.group_rows(h // kh)
+    _, c2 = fd.split_shape(nbk, 512)
+    full_len = torch.full_like(kv_len, s_len)
+    ok, err = same(ops.flash_decode(q, k, v, full_len, sm_scale=sc,
+                                    block_kv=512),
+                   ops.flash_decode(q, k, v, full_len, sm_scale=sc,
+                                    block_kv=512, partial_chunks=c2))
+    print(f"main kv_len=S (no dead split): flash_decode vs partial_chunks="
+          f"{c2}: max|diff|={err:g} {'bitwise' if ok else 'DIFFER'}",
+          flush=True)
+    check(ok, "flash_decode differs from flash_decode(partial_chunks=C)")
+    for label, blk, window, pl in (("dense window=None", 512, None, None),
+                                   (f"dense window={WINDOW}", 512, WINDOW,
+                                    None),
+                                   ("paged ps=256", ps, None, None)):
+        bias_w = ops.length_bias(kv_len, s_len, window, dev)
+        nbl = s_len // blk
+        per_l, c_l = fd.split_shape(nbl, blk)
+        live = fd.split_liveness(bias_w, blk, nbl, per_l)
+        print(f"splits {label}: per={per_l} C={c_l}; computed splits "
+              f"{int(live.sum())} of {b * c_l}; split-pass CUDA blocks "
+              f"launched {b * kh * ngrp * c_l} ({int(live.sum()) * kh * ngrp}"
+              f" run past the liveness test)", flush=True)
+
     # 9. timings.  The bound counts what this run's data needs: request b
     # needs its kv_len[b] rows (a masked row after a valid one adds
     # exactly 0), all S rows where kv_len is 0 (its output is the mean of
@@ -515,7 +577,22 @@ def decode_phases(seed, dev, smi):
             "bound_by": ("bytes" if bytes_ / HBM_BYTES_PER_S
                          >= ops_ / FP32_OPS_PER_S else "operations"),
             "library_ms": lib_ms})
-    del q, k, v, kp, vp, tables, bias
+    # K2 at window 4,096, timed apart: a request needs its last
+    # min(kv_len, 4,096) rows (all S where kv_len is 0)
+    wbias = ops.length_bias(kv_len, s_len, WINDOW, dev)
+    wrows = int(torch.where(kv_len > 0, kv_len.clamp(max=WINDOW),
+                            torch.full_like(kv_len, s_len)).sum())
+    wbytes = wrows * row_bytes + b * h * d * 4 * 2 + wrows * 4
+    wbound = max(wbytes / HBM_BYTES_PER_S,
+                 wrows * h * (4 * d + 1) / FP32_OPS_PER_S) * 1e3
+    kern_ms = cuda_ms(lambda: fd.flash_decode_cuda(
+        q, k, v, wbias, sm_scale=sc, block_kv=512), REPS)
+    wrap_ms = cuda_ms(lambda: ops.flash_decode(
+        q, k, v, kv_len, sm_scale=sc, window=WINDOW, block_kv=512), REPS)
+    print(f"time dense window={WINDOW}: kernel {kern_ms:.3f} ms | wrapper "
+          f"{wrap_ms:.3f} ms | bound {wbound:.3f} ms ({wbytes / 1e9:.3f} GB,"
+          f" {wrows} rows) | {smi}", flush=True)
+    del q, k, v, kp, vp, tables, bias, wbias
     torch.cuda.empty_cache()
     return entries
 

@@ -51,8 +51,8 @@ _SIGNATURES = {
         "block_ranges_launch": [_P, _P, _L, _C, _C, _C, _P],
     },
     "flash_decode": {
-        "flash_decode_launch": [_C, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _C, _C, _C, _C, _C, _C, _C, _C, _C, _C, _C,
+        "flash_decode_launch": [_C, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _P, _C, _C, _C, _C, _C, _C, _C, _C, _C, _C,
                                 _F, _P],
     },
     "intac_accum": {

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.intac import LIMB_SHIFT
+from ..core.intac import LIMB_SHIFT, to_i32
 
 #: launches of the K5 kernel, counted by ``intac_accum_cuda``
 LAUNCHES = 0
@@ -36,10 +36,16 @@ def _quantize(values: torch.Tensor, scale):
 
 
 def intac_accum_torch(values: torch.Tensor, scale) -> torch.Tensor:
-    """The plain version: values (N, D), scale () -> (2, D) int32."""
+    """The plain version: values (N, D), scale () -> (2, D) int32.
+
+    Each limb is cast as the reference's ``astype(int32)`` and the
+    kernel's ``static_cast<int>`` cast it, saturating with NaN -> 0, so a
+    +-Inf row adds INT32_MAX / INT32_MIN to its hi limb and 0 to its lo
+    limb (whose ``Inf - Inf`` is NaN); the int64 sum then wraps to int32
+    as the reference's int32 sum does."""
     hi, lo = _quantize(values, scale)
-    return torch.stack([hi.to(torch.int64).sum(0),
-                        lo.to(torch.int64).sum(0)]).to(torch.int32)
+    return torch.stack([to_i32(hi).to(torch.int64).sum(0),
+                        to_i32(lo).to(torch.int64).sum(0)]).to(torch.int32)
 
 
 def intac_accum_cuda(values: torch.Tensor, scale, *,

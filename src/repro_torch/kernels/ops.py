@@ -166,7 +166,10 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``pos >= kv_len - window``).  ``partial_chunks``: split the KV stream
     into chunks of ceil(nb / partial_chunks) blocks, each emitting a raw
     (m, l, o) partial (K3), merged by ``FlashAccumulator`` in the fixed
-    ``merge_tree``.  Returns (B, H, d) f32.
+    ``merge_tree``.  Without it, K2 runs the split, skip and merge order
+    of ``flash_decode.py``: the same result bitwise where no split of
+    ``SPLIT_ROWS`` rows is masked whole and the chunks agree.  Returns
+    (B, H, d) f32.
     """
     dev = resolve_device(device)
     q, k, v = (torch.as_tensor(t, device=dev).to(torch.float32).contiguous()

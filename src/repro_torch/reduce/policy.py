@@ -323,7 +323,13 @@ class Exact2Policy(Policy):
         for k, dig in enumerate(intac.bin_digits(
                 res * scale, 0, bits=intac.RES_BIN_BITS,
                 num=intac.RES_NUM_BINS)):
-            out[:, (k + 1) * d:(k + 2) * d] = dig
+            # the reference's bin_split casts each digit to int32 (NaN ->
+            # 0, saturating).  Finite digits are integers below 2^7, so
+            # that cast, stored back as f32, is this one pass: NaN -> 0,
+            # +-Inf -> +-2^31 (the f32 value of INT32_MAX / INT32_MIN)
+            torch.nan_to_num(dig, nan=0.0, posinf=2.0 ** 31,
+                             neginf=-2.0 ** 31,
+                             out=out[:, (k + 1) * d:(k + 2) * d])
         return out
 
     def init(self, num_segments: int, d: int, device=None):

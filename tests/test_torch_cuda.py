@@ -303,6 +303,67 @@ def test_cuda_paged_bitwise_plain_and_dense(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("split_rows", (32, 128, 1024))
+def test_cuda_split_order_bitwise_plain(split_rows, cuda):
+    """K2 and K4 with per = 1 and > 1: dead splits at both ends (window),
+    a request with kv_len = 0, S not a multiple of the split, a head dim
+    of 30 (4-byte copies) and G = 10 (two query-row groups)."""
+    from repro_torch.kernels import ops
+    fd = _fd()
+    for b, h, kh, s, d, block in ((4, 12, 2, 1000, 64, 32),
+                                  (3, 10, 1, 700, 30, 64),
+                                  (2, 8, 2, 300, 128, 16)):
+        q, k, v, kv_len = _decode_inputs(31, b, h, kh, s, d, cuda)
+        for window in (None, 100):
+            bias = ops.length_bias(kv_len, s, window)
+            want = fd.flash_decode_torch(q, k, v, bias, sm_scale=0.2,
+                                         block_kv=block,
+                                         split_rows=split_rows)
+            got = fd.flash_decode_cuda(q, k, v, bias, sm_scale=0.2,
+                                       block_kv=block, split_rows=split_rows)
+            torch.cuda.synchronize()
+            assert torch.equal(want, got), (b, s, d, window, split_rows)
+    ps, nb = 16, 9
+    q, k, v, kv_len = _decode_inputs(32, 3, 8, 2, nb * ps, 64, cuda)
+    tables = torch.randint(0, 40, (3, nb), device=cuda, dtype=torch.int32)
+    tables[0, 5:] = -1
+    kp = torch.randn((40, ps, 2, 64), device=cuda)
+    vp = torch.randn((40, ps, 2, 64), device=cuda)
+    for window in (None, 50):
+        bias = ops.length_bias(kv_len, nb * ps, window)
+        want = fd.flash_decode_paged_torch(q, kp, vp, bias, tables,
+                                           sm_scale=0.2,
+                                           split_rows=split_rows)
+        got = fd.flash_decode_paged_cuda(q, kp, vp, bias, tables,
+                                         sm_scale=0.2, split_rows=split_rows)
+        torch.cuda.synchronize()
+        assert torch.equal(want, got), (window, split_rows)
+
+
+@pytest.mark.cuda
+def test_cuda_split_order_batch_independent_and_partial_chunks(cuda):
+    """On the card: a request's bits alone equal its bits in a batch, and
+    with no dead split ``flash_decode()`` equals
+    ``flash_decode(partial_chunks=C)``."""
+    from repro_torch.kernels import ops
+    fd = _fd()
+    q, k, v, _ = _decode_inputs(33, 4, 8, 2, 6144, 64, cuda)
+    kv_len = torch.tensor([6144, 300, 0, 4500], device=cuda)
+    batch = ops.flash_decode(q, k, v, kv_len, sm_scale=0.125, window=2000)
+    for bi in range(4):
+        alone = ops.flash_decode(q[bi:bi + 1], k[bi:bi + 1], v[bi:bi + 1],
+                                 kv_len[bi:bi + 1], sm_scale=0.125,
+                                 window=2000)
+        assert torch.equal(alone[0], batch[bi]), bi
+    full = torch.tensor([6144, 5121, 5500, 6000], device=cuda)
+    per, c = fd.split_shape(12, 512)
+    assert (per, c) == (2, 6)
+    assert torch.equal(
+        ops.flash_decode(q, k, v, full, sm_scale=0.125),
+        ops.flash_decode(q, k, v, full, sm_scale=0.125, partial_chunks=c))
+
+
+@pytest.mark.cuda
 def test_cuda_intac_bitwise_plain_and_int64(cuda):
     import importlib
     ia = importlib.import_module("repro_torch.kernels.intac_accum")

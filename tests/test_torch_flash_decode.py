@@ -10,6 +10,8 @@ kernels are held to these plain versions bitwise in
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 
@@ -257,3 +259,222 @@ def test_pool_matches_reference_pool():
                 out.append((type(e).__name__, str(e)))
         assert out[0] == out[1], step
     assert repr(pools[0]) == repr(pools[1])
+
+
+# ---------------------------------------------------------------------------
+# the split, skip and merge order of K2 and K4
+# ---------------------------------------------------------------------------
+
+from repro_torch.core.segmented import (  # noqa: E402
+    combine_flash_partials_tree, flash_partial_combine)
+FD = importlib.import_module("repro_torch.kernels.flash_decode")
+
+
+def _bias(kv_len, s, window=None):
+    return T.length_bias(torch.tensor(kv_len), s, window)
+
+
+@pytest.mark.parametrize("s,block,split_rows,window,kv_len", [
+    (1000, 64, 128, None, [1000, 0, 333]),      # S not a split multiple
+    (1000, 64, 128, 150, [900, 0, 300]),        # dead splits at both ends
+    (700, 32, 32, 100, [700, 401, 1]),          # per = 1
+    (640, 128, 64, 200, [640, 639, 129]),       # block > split_rows
+    (5000, 256, None, 1000, [5000, 2100, 0]),   # the default SPLIT_ROWS
+])
+def test_split_order_plain_matches_reference(s, block, split_rows, window,
+                                             kv_len):
+    q, k, v = _inputs(s + block, 3, 4, 2, s, 16)
+    kw = {} if split_rows is None else {"split_rows": split_rows}
+    got = FD.flash_decode_torch(torch.tensor(q), torch.tensor(k),
+                                torch.tensor(v), _bias(kv_len, s, window),
+                                sm_scale=0.25, block_kv=block, **kw)
+    want = J.flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          jnp.asarray(kv_len), sm_scale=0.25, window=window,
+                          block_kv=block)
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_split_liveness_reads_the_bias_only():
+    """Dead: every entry exactly -1e30 (the padded rows past S count as
+    -1e30); a request with no live split computes all of them."""
+    bias = torch.full((3, 10), NEG)
+    bias[0, 4] = 0.0
+    bias[1, 9] = -1e29
+    comp = FD.split_liveness(bias, 2, 5, 2)          # splits of 4 rows
+    assert comp.tolist() == [[False, True, False], [False, False, True],
+                             [True, True, True]]
+
+
+def test_split_order_bitwise_independent_of_the_batch():
+    """A request's output is the same bits alone and beside requests of
+    other lengths (its splits and their liveness are its own)."""
+    s, block = 900, 64
+    q, k, v = _inputs(17, 4, 6, 3, s, 16)
+    kv_len = [900, 77, 0, 512]
+    for window in (None, 120):
+        bias = _bias(kv_len, s, window)
+        batch = FD.flash_decode_torch(torch.tensor(q), torch.tensor(k),
+                                      torch.tensor(v), bias, sm_scale=0.3,
+                                      block_kv=block, split_rows=128)
+        for bi in range(4):
+            alone = FD.flash_decode_torch(
+                torch.tensor(q[bi:bi + 1]), torch.tensor(k[bi:bi + 1]),
+                torch.tensor(v[bi:bi + 1]), bias[bi:bi + 1], sm_scale=0.3,
+                block_kv=block, split_rows=128)
+            assert torch.equal(alone[0], batch[bi]), (window, bi)
+
+
+def test_no_dead_split_is_bitwise_partial_chunks():
+    """Where no split is dead, ``flash_decode()`` is bitwise
+    ``flash_decode(partial_chunks=C)``: the same chunks, merged in the same
+    tree (``merge_tree`` of ``FlashAccumulator``)."""
+    s, block = 6144, 512                            # nb 12, per 2, C 6
+    q, k, v = _inputs(23, 2, 4, 2, s, 8)
+    kv_len = np.asarray([6144, 5121])               # every split live
+    per, c = FD.split_shape(-(-s // block), block)
+    assert (per, c) == (2, 6)
+    args = (torch.tensor(q), torch.tensor(k), torch.tensor(v),
+            torch.tensor(kv_len))
+    whole = T.flash_decode(*args, sm_scale=0.3, block_kv=block,
+                           device="cpu")
+    chunks = T.flash_decode(*args, sm_scale=0.3, block_kv=block,
+                            partial_chunks=c, device="cpu")
+    assert torch.equal(whole, chunks)
+
+
+@pytest.mark.parametrize("split_rows", (16, 32, 48))
+def test_paged_bitwise_dense_with_dead_splits(split_rows):
+    b, h, kh, d, ps, nb = 3, 4, 2, 16, 16, 7
+    q, k, v = _inputs(41, b, h, kh, nb * ps, d)
+    kv_len = np.asarray([100, 0, 17], np.int32)
+    pool, tables = _shuffled_pool(PagedKVPool, b, nb, ps, kv_len)
+    kp = np.random.RandomState(1).randn(pool.num_pages, ps, kh, d) \
+        .astype(np.float32)
+    vp = np.random.RandomState(2).randn(pool.num_pages, ps, kh, d) \
+        .astype(np.float32)
+    idx = np.clip(tables, 0, None)
+    k_asm = kp[idx].reshape(b, nb * ps, kh, d)
+    v_asm = vp[idx].reshape(b, nb * ps, kh, d)
+    for window in (None, 40):
+        bias = _bias(kv_len, nb * ps, window)
+        paged = FD.flash_decode_paged_torch(
+            torch.tensor(q), torch.tensor(kp), torch.tensor(vp), bias,
+            torch.tensor(tables), sm_scale=0.2, split_rows=split_rows)
+        dense = FD.flash_decode_torch(
+            torch.tensor(q), torch.tensor(k_asm), torch.tensor(v_asm), bias,
+            sm_scale=0.2, block_kv=ps, split_rows=split_rows)
+        assert torch.equal(paged, dense), (split_rows, window)
+        want = J.flash_decode(jnp.asarray(q), jnp.asarray(k_asm),
+                              jnp.asarray(v_asm), jnp.asarray(kv_len),
+                              sm_scale=0.2, window=window, block_kv=ps)
+        np.testing.assert_allclose(paged.numpy(), np.asarray(want),
+                                   rtol=RTOL, atol=ATOL)
+
+
+def _slot_push(slot, v, n, combine):
+    """The kernels' binary-counter push: merge ``slot[L] + v`` while bit L
+    of the count n (before the push) is set, then store."""
+    lvl = 0
+    while (n >> lvl) & 1:
+        v = combine(slot[lvl], v)
+        lvl += 1
+    slot[lvl] = v
+
+
+def _slot_close(slot, n, combine):
+    """The kernels' close: fold the set slots from the smallest up."""
+    v = None
+    for lvl in range(n.bit_length()):
+        if (n >> lvl) & 1:
+            v = slot[lvl] if v is None else combine(slot[lvl], v)
+    return v
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 5, 8, 13, 16, 31])
+def test_merge_kernel_emulation_bitwise_the_pinned_tree(c):
+    """``merge_kernel``: read the request's flags, keep the computed
+    partials in order (all of them when none is live), push each into the
+    slots and close; bitwise ``combine_flash_partials_tree`` over them,
+    then ``o / max(l, 1e-30)``."""
+    rng = np.random.RandomState(c)
+    m = torch.tensor((rng.randn(c, 5) * 4).astype(np.float32))
+    m[rng.rand(c, 5) < 0.2] = NEG
+    l = torch.tensor(rng.rand(c, 5).astype(np.float32) * 30)
+    o = torch.tensor(rng.randn(c, 5, 7).astype(np.float32))
+    for live in (rng.rand(c) < 0.6, np.zeros(c, bool), np.ones(c, bool)):
+        keep = [i for i in range(c) if live[i] or not live.any()]
+
+        def comb(x, y):
+            return flash_partial_combine(*x, *y)
+
+        slot, n = {}, 0
+        for i in keep:
+            _slot_push(slot, (m[i], l[i], o[i]), n, comb)
+            n += 1
+        _, lk, ok = _slot_close(slot, n, comb)
+        _, lt, ot = combine_flash_partials_tree(m[keep], l[keep], o[keep])
+        assert torch.equal(ok / torch.clamp_min(lk, 1e-30)[..., None],
+                           ot / torch.clamp_min(lt, 1e-30)[..., None])
+
+
+@pytest.mark.parametrize("rows", [1, 5, 16, 31, 32, 33, 96, 100, 256, 500])
+def test_split_kernel_tile_trees_emulation_bitwise(rows):
+    """``split_kernel``'s trees over a block's rows: a fully unrolled
+    32-row subtree per staged tile pushed at level 5, the rows of a short
+    last tile at level 0, closed from the smallest slot up; and the score
+    over d: tree8 chunks at level 3, leftover columns at level 0.  Both
+    bitwise ``pairwise_tree_sum``."""
+    rng = np.random.RandomState(rows)
+    x = (rng.randn(rows) * 2.0 ** rng.randint(-20, 20, rows)) \
+        .astype(np.float32)
+
+    def add(a, b):
+        return np.float32(a + b)
+
+    def tree32(t):
+        return _kernel_tree(t)                    # a full 32-leaf tree
+
+    tiles, short = {}, {}
+    full, rem = divmod(rows, 32)
+    for t in range(full):
+        _slot_push(tiles, tree32(x[32 * t:32 * t + 32]), t, add)
+    for j in range(rem):
+        _slot_push(short, x[32 * full + j], j, add)
+    v = _slot_close(short, rem, add)
+    for lvl in range(full.bit_length()):          # continue up the tiles
+        if (full >> lvl) & 1:
+            v = tiles[lvl] if v is None else add(tiles[lvl], v)
+    want = pairwise_tree_sum(torch.tensor(x)).numpy()
+    assert np.float32(v).tobytes() == want.tobytes()
+    chunks, left = {}, {}
+    nc, rem8 = divmod(rows, 8)
+    for i in range(nc):
+        _slot_push(chunks, _kernel_tree(x[8 * i:8 * i + 8]), i, add)
+    for j in range(rem8):
+        _slot_push(left, x[8 * nc + j], j, add)
+    v = _slot_close(left, rem8, add)
+    for lvl in range(nc.bit_length()):
+        if (nc >> lvl) & 1:
+            v = chunks[lvl] if v is None else add(chunks[lvl], v)
+    assert np.float32(v).tobytes() == want.tobytes()
+
+
+def test_smem_mirror_and_launch_limits():
+    """The Python mirror of the split pass's shared memory, and the
+    limits the wrapper checks before a launch."""
+    assert FD.smem_bytes(6, 128, 512) == 4 * (2 * 32 * 132 + 8 * 128
+                                              + 6 * 512 + 24)
+    assert FD.smem_bytes(16, 30, 18) == 4 * (2 * 32 * 36 + 8 * 32
+                                             + 8 * 20 + 24)
+    assert [FD.group_rows(g) for g in (1, 6, 8, 9, 10, 11, 12, 16, 24)] \
+        == [1, 6, 8, 3, 5, 1, 6, 8, 8]
+    assert FD.split_shape(64, 512) == (2, 32)
+    assert FD.split_shape(128, 256) == (4, 32)
+    assert FD.split_shape(64, 512, 2048) == (4, 16)
+    assert FD.split_shape(3, 4096) == (1, 3)
+    q = torch.zeros(1, 2, 300)
+    k = torch.zeros(1, 8, 1, 300)
+    with pytest.raises(ValueError, match="CUDA"):
+        FD.flash_decode_cuda(q, k, k, torch.zeros(1, 8), sm_scale=1.0)
