@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port: ``python3 chip_smoke.py``.
 
-Drives the port's two paths on one NVIDIA GPU.  Slice 1, the reduce
+Drives the port's three paths on one NVIDIA GPU.  First the reduce
 front door: ``repro_torch.reduce(values, segment_ids=, num_segments=1024,
 policy=p)`` once per accuracy tier, at N=4,000,000 rows x D=64 f32 in
 1,024 back-to-back variable-length sets (about 1% of rows labeled
-``OUT_OF_RANGE_LABEL``, magnitudes spread over 2^-20..2^20).  Slice 2,
+``OUT_OF_RANGE_LABEL``, magnitudes spread over 2^-20..2^20).  Then
 the kernel entry points ``repro_torch.kernels.flash_decode``,
 ``flash_decode_paged`` and ``intac_accum``, at mixtral-8x22b's attention
 width (H=48, K=8, d=128) over a decode batch of 16 requests x 32,768 f32
-KV rows, and at N=32,768 x D=6,144 for INTAC.  All data is drawn from
-``--seed``.  Phases, in order; any failure exits nonzero:
+KV rows, and at N=32,768 x D=6,144 for INTAC.  The serving path:
+stablelm-1.6b at full width (bf16, random weights) through the port's
+``Engine``, decode attention on K2 and ``mean_logprob`` on K1.  All data
+is drawn from ``--seed``.  Phases, in order; any failure exits nonzero:
 
 1. device — the card's name and power limit, as nvidia-smi prints them;
 2. build  — every CUDA source, one nvcc each, in parallel;
@@ -53,13 +55,28 @@ KV rows, and at N=32,768 x D=6,144 for INTAC.  All data is drawn from
 9. decode and INTAC timings — each kernel and its wrapper, the plain
    version, and one PyTorch call computing the same function where there
    is one (``scaled_dot_product_attention`` for K2); K2 at window 4,096
-   timed apart.
+   timed apart;
+10. serve — ``Engine(max_len=1024, max_batch=8, prefill_chunk=32,
+   logprob_policy="compensated")`` over 8 greedy requests (prompts of
+   64-768 tokens from ``--seed``, 32 new tokens each): results in order
+   and complete; K2 launched once a layer at every decode step and K1
+   once, by ``_finalize_logprobs`` (counts set to 0 just before the run,
+   read after each step and just after); K2 bitwise against its plain
+   version on the engine's own cache and query, captured at one decode
+   step of the middle layer; three requests alone in fresh Engines give
+   bitwise the same tokens, and under ``exact2`` the same
+   ``mean_logprob``; one request's last decode-step logits against
+   ``forward(mode="prefill")`` over its tokens, max |diff| / std within
+   ``SERVE_LOGIT_BOUND``; K1 bitwise at the ``mean_logprob`` shape;
+   timings: a decode step, a prefill chunk, K2 per layer per step
+   against its bound and SDPA, the parameter and cache bytes.
 
 Times are CUDA-event medians after a warm-up (plain versions: one
 host-clock run); the bound is the least time the card could take, bytes
 moved over 3.35 TB/s or operations over 67 T/s, whichever is larger,
 counting only what this run's data needs (the rows of kept labels; the
-KV rows below each request's length; distinct pages).
+KV rows below each request's length, every row for K3, which emits every
+chunk's raw partial; distinct pages).
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script exits nonzero and prints no result.
@@ -98,6 +115,25 @@ BATCH, KV_ROWS = 16, 32_768
 #: INTAC: the wrapper's row limit x mixtral's d_model; magnitudes < 2^5
 #: and scale 2^24 keep |x| * scale < 2^29, inside intac_accum.py's contract
 INTAC_ROWS, INTAC_COLS, INTAC_SCALE = 1 << 15, 6144, 2.0 ** 24
+#: the serve phase: stablelm-1.6b at full width (src/repro_torch/configs/
+#: stablelm_1_6b.py, bf16), 8 slots of 1,024 context, 32-token prefill
+#: chunks, 8 greedy requests with prompts in [64, 768] and 32 new tokens
+SERVE_ARCH, SERVE_LEN, SERVE_SLOTS, SERVE_CHUNK = "stablelm-1.6b", 1024, 8, 32
+SERVE_PROMPTS, SERVE_NEW = (64, 768), 32
+#: requests also run alone in a fresh Engine (check 1)
+SERVE_ALONE = (0, 3, 7)
+#: decode step whose attention inputs are captured in the middle layer
+#: (check 2): late enough that every slot decodes
+SERVE_TAP_STEP = 24
+#: check 3: max |decode logits - cache-free prefill logits| over the
+#: prefill logits' std.  The two paths round bf16 activations after
+#: different f32 sums (1,024-key K2 splits against one softmax; 1- and
+#: 32-row products against an 800-row one), so they differ by a few bf16
+#: ulps a layer (2^-8 relative each), compounded over 24 layers: a bound
+#: of a quarter of the logits' spread leaves room for that and catches a
+#: wrong position, mask or cache row, which moves logits by about their
+#: whole spread.
+SERVE_LOGIT_BOUND = 0.25
 
 
 def fail(msg: str) -> int:
@@ -520,11 +556,11 @@ def decode_phases(seed, dev, smi):
     rows = int(lens.sum())
     row_bytes = 2 * kh * d * 4
     io_bytes = b * h * d * 4 * 2 + rows * 4           # q, out, bias rows
-    ops_ = rows * h * (4 * d + 1)
     need = torch.arange(nb, device=dev)[None, :] < -(-lens[:, None] // ps)
     pages = int(torch.unique(tables.clamp_min(0)[need]).numel())
-    print(f"bound: {rows} of {b * s_len} KV rows needed; paged: {pages} "
-          f"distinct pages of {ps} rows", flush=True)
+    print(f"bound: {rows} of {b * s_len} KV rows needed (K3: all "
+          f"{b * s_len}); paged: {pages} distinct pages of {ps} rows",
+          flush=True)
     chunks = -(-nbk // per)
     sdpa = None
     major_minor = tuple(int(x) for x in
@@ -541,11 +577,13 @@ def decode_phases(seed, dev, smi):
                   lambda: ops.flash_decode(q, k, v, kv_len, sm_scale=sc,
                                            block_kv=512),
                   rows * row_bytes + io_bytes, sdpa, 72),
+        # K3 emits every chunk's raw partial, masked or not (a masked
+        # chunk's o is the sum of its V rows), so it must read every row
         "partial": (full["partial"][0],
                     lambda: ops.flash_decode(q, k, v, kv_len, sm_scale=sc,
                                              block_kv=512,
                                              partial_chunks=4),
-                    rows * row_bytes + io_bytes
+                    b * s_len * (row_bytes + 4) + b * h * d * 4
                     + chunks * b * h * (d + 2) * 4, None, 92),
         "paged": (full["paged"][0],
                   lambda: ops.flash_decode_paged(q, kp, vp, tables, kv_len,
@@ -555,6 +593,7 @@ def decode_phases(seed, dev, smi):
     }
     entries = []
     for name, (kern, wrap, bytes_, lib, line) in timed.items():
+        ops_ = (b * s_len if name == "partial" else rows) * h * (4 * d + 1)
         kern_ms = cuda_ms(kern, REPS)
         wrap_ms = cuda_ms(wrap, REPS)
         lib_ms = None if lib is None else cuda_ms(lib, REPS)
@@ -642,6 +681,284 @@ def intac_phase(seed, dev, smi):
             "bound_by": ("bytes" if bytes_ / HBM_BYTES_PER_S
                          >= ops_ / FP32_OPS_PER_S else "operations"),
             "library_ms": None}
+
+
+def serve_phase(seed, dev, smi):
+    """Phase 10: the serving path at stablelm-1.6b's full width through
+    the port's ``Engine``; returns the kernel entries of K2 and K1 on
+    this path."""
+    import importlib
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import jugglepac_segsum as K
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.reduce import get_policy, mask_out_of_range, \
+        plan_program
+    from repro_torch.serve import Engine, Request
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
+
+    cfg = get_config(SERVE_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 11)
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    host = torch.Generator()
+    host.manual_seed(seed + 12)
+    lens = torch.randint(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1,
+                         (SERVE_SLOTS,), generator=host).tolist()
+    requests = [Request(prompt=torch.randint(1, cfg.vocab, (n,),
+                                             generator=host).tolist(),
+                        max_new_tokens=SERVE_NEW) for n in lens]
+
+    def engine(policy):
+        return Engine(cfg, model, max_len=SERVE_LEN, max_batch=SERVE_SLOTS,
+                      prefill_chunk=SERVE_CHUNK, logprob_policy=policy,
+                      device=dev)
+
+    # taps (forward hooks): decode steps seen by layer 0; the middle
+    # layer's K2 inputs and output at one step; the model's last
+    # decode-step logits
+    layer = cfg.n_layers // 2
+    tap = {"steps": 0, "mid": 0, "logits": None}
+
+    def count_steps(mod, args, out):
+        tap["steps"] += 1
+
+    def capture(mod, args, out):
+        tap["mid"] += 1
+        if tap["mid"] == SERVE_TAP_STEP:
+            q, k, v, kv_len, sc = args
+            tap.update(q=q.clone(), k=k.clone(), v=v.clone(),
+                       kv_len=kv_len.clone(), sc=sc, out=out.clone())
+
+    def last_logits(mod, args, kwargs, out):
+        if kwargs.get("mode") == "decode" and args[0].shape[1] == 1:
+            tap["logits"] = out[0][:, 0].clone()
+
+    hooks = [model.blocks[0].core.decode_attn.register_forward_hook(
+                 count_steps),
+             model.blocks[layer].core.decode_attn.register_forward_hook(
+                 capture)]
+    print(f"serve: {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}), "
+          f"{sum(p.numel() for p in model.parameters())} parameters "
+          f"({M.param_bytes(model) / 1e9:.3f} GB) drawn in {init_s:.2f} s; "
+          f"{SERVE_SLOTS} slots x {SERVE_LEN} context, prefill chunks of "
+          f"{SERVE_CHUNK}; prompts {lens}, {SERVE_NEW} new tokens each, "
+          f"greedy", flush=True)
+
+    # the main path: counts set to 0 just before, read just after; K1's
+    # count is read after every engine step too (0 until the run's end,
+    # when _finalize_logprobs takes the mean)
+    eng = engine("compensated")
+    stream = {}
+    k1_during = []
+
+    def on_step(e, step):
+        k1_during.append(K.LAUNCHES)
+        stream["vals"], stream["ids"] = list(e._lp_vals), list(e._lp_ids)
+
+    rids = [eng.submit(r) for r in requests]
+    for key in fd.LAUNCHES:
+        fd.LAUNCHES[key] = 0
+    K.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.run(on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2_launches, k1_launches = dict(fd.LAUNCHES), K.LAUNCHES
+    for hk in hooks:
+        hk.remove()
+    steps = tap["steps"]
+    new = sum(len(r.tokens) - r.prompt_len for r in results)
+    print(f"main serve: {len(results)} results in order "
+          f"{[r.rid for r in results]}, {new} tokens, {steps} decode "
+          f"steps, {eng._clock} engine steps in {wall * 1e3:.1f} ms; K2 "
+          f"launches {k2_launches['dense']} (want {steps} x "
+          f"{cfg.n_layers}), K1 launches {k1_launches} (after each step: "
+          f"{sorted(set(k1_during))}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+          f"mean_logprob {[round(r.mean_logprob, 4) for r in results]}",
+          flush=True)
+    check([r.rid for r in results] == rids
+          and all(len(r.tokens) - r.prompt_len == SERVE_NEW
+                  and r.tokens[:r.prompt_len] == q.prompt
+                  and all(0 <= t < cfg.vocab for t in r.tokens)
+                  and math.isfinite(r.mean_logprob)
+                  for r, q in zip(results, requests)),
+          "serve: results out of order, short, out of the vocabulary or "
+          "with a non-finite mean_logprob")
+    # 4. K2 on every decode step of every layer; K1 for the mean alone
+    check(steps >= SERVE_NEW - 1
+          and k2_launches == {"dense": steps * cfg.n_layers, "partial": 0,
+                              "paged": 0},
+          f"serve: K2 launches {k2_launches} for {steps} decode steps")
+    check(k1_launches == 1 and set(k1_during) == {0},
+          f"serve: the mean_logprob reduce did not run on K1 (launches "
+          f"{k1_launches}, during the steps {sorted(set(k1_during))})")
+    print(f"check mean_logprob on the cuda backend: K1 launched "
+          f"{k1_launches} time, by _finalize_logprobs (0 after every "
+          f"step)", flush=True)
+
+    # 2. K2 against its plain version on the engine's own cache and query
+    q, k, v, kv_len, sc = (tap[x] for x in ("q", "k", "v", "kv_len", "sc"))
+    qf = q.float().contiguous()
+    bias = ops.length_bias(kv_len, k.shape[1], None, dev)
+    plain_ms, plain = host_ms(lambda: fd.flash_decode_torch(
+        qf, k, v, bias, sm_scale=sc, block_kv=512))
+    kern = fd.flash_decode_cuda(qf, k, v, bias, sm_scale=sc, block_kv=512)
+    ok, k2_err = same(kern, plain)
+    ok_engine = torch.equal(kern, tap["out"])
+    print(f"check K2 at the serving shape (layer {layer}, decode step "
+          f"{SERVE_TAP_STEP}: q {tuple(q.shape)} {q.dtype}, cache "
+          f"{tuple(k.shape)} {k.dtype}, kv_len {kv_len.tolist()}): "
+          f"max|kernel-plain|={k2_err:g} {'bitwise' if ok else 'DIFFER'}; "
+          f"the engine's own output {'bitwise' if ok_engine else 'DIFFER'}",
+          flush=True)
+    check(ok and ok_engine, "serve: K2 differs from its plain version on "
+                            "the engine's cache")
+
+    # timings on the engine's final state: every slot active at its
+    # length, each call writing the same row (the caches are not kept)
+    lengths = eng._caches[0]["core"].length[0].clone()
+    toks = torch.tensor([[r.tokens[-1]] for r in results], device=dev)
+    active = torch.ones(SERVE_SLOTS, dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        step_ms = cuda_ms(lambda: M.decode_step(
+            model, toks, eng._caches, lengths, active=active), REPS)
+        chunk = torch.tensor([requests[0].prompt[:SERVE_CHUNK]], device=dev)
+        chunk_ms = cuda_ms(lambda: eng._prefill_chunk(
+            0, chunk, 0, SERVE_CHUNK), REPS)
+    k2_ms = cuda_ms(lambda: fd.flash_decode_cuda(
+        qf, k, v, bias, sm_scale=sc, block_kv=512), REPS)
+    rows = int(kv_len.clamp(max=k.shape[1]).sum())
+    kh, d = k.shape[2], k.shape[3]
+    h = q.shape[1]
+    k2_bytes = rows * (2 * kh * d * 4 + 4) + 2 * q.numel() * 4
+    k2_ops = rows * h * (4 * d + 1)
+    k2_bound = max(k2_bytes / HBM_BYTES_PER_S,
+                   k2_ops / FP32_OPS_PER_S) * 1e3
+    k4 = k.permute(0, 2, 1, 3).contiguous()
+    v4 = v.permute(0, 2, 1, 3).contiguous()
+    mask = bias[:, None, None, :]
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qf[:, :, None], k4, v4, attn_mask=mask, scale=sc), REPS)
+    del k4, v4, mask
+    print(f"time serve: decode step at B={SERVE_SLOTS} {step_ms:.3f} ms "
+          f"({SERVE_SLOTS * 1e3 / step_ms:.1f} tokens/s decoding) | "
+          f"{SERVE_CHUNK}-token prefill chunk {chunk_ms:.3f} ms | the run: "
+          f"{new} tokens in {wall * 1e3:.1f} ms ({new / wall:.1f} "
+          f"generated tokens/s, prefill included) | K2 per layer per step "
+          f"{k2_ms:.4f} ms, bound {k2_bound:.4f} ms ({k2_bytes / 1e6:.2f} "
+          f"MB: the f32 KV rows below each length), plain {plain_ms:.1f} "
+          f"ms, SDPA {sdpa_ms:.4f} ms | parameters "
+          f"{M.param_bytes(model) / 1e9:.3f} GB, caches "
+          f"{M.cache_bytes(eng._caches) / 1e9:.3f} GB (f32 k/v) | {smi}",
+          flush=True)
+    entries = [{
+        "name": "flash_decode_kernel<dense>/serve", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:72",
+        "launches": k2_launches["dense"], "max_abs_err": k2_err,
+        "ms": k2_ms, "plain_ms": plain_ms, "bound_ms": k2_bound,
+        "bound_by": ("bytes" if k2_bytes / HBM_BYTES_PER_S
+                     >= k2_ops / FP32_OPS_PER_S else "operations"),
+        "library_ms": sdpa_ms}]
+    del q, k, v, qf, bias, kern, plain
+    tap.update(q=None, k=None, v=None, out=None)
+
+    # K1 at the mean_logprob shape: the run's (step x slot) stream
+    vals = torch.cat(stream["vals"])[:, None]
+    ids = torch.from_numpy(np.concatenate(stream["ids"])).to(dev)
+    nseg = len(requests)
+    pol = get_policy("compensated")
+    mids = mask_out_of_range(ids, nseg)
+    dom, _ = pol.prepare(torch.where((mids >= 0)[:, None], vals,
+                                     torch.zeros((), device=dev)), len(ids))
+    prog = plan_program(pol, num_segments=nseg, domain_width=dom.shape[1],
+                        block_size=512, op="mean")
+    pad = (-len(ids)) % 512
+    k1_plain_ms, k1_plain = host_ms(lambda: K.segsum_policy_torch(
+        torch.cat([dom, dom.new_zeros((pad, dom.shape[1]))]),
+        torch.cat([mids, mids.new_full((pad,), -1)]), nseg, policy=pol,
+        program=prog, block_rows=512))
+    k1 = K.segsum_policy_cuda(dom, mids, nseg, policy=pol, program=prog,
+                              block_rows=512)
+    ok, k1_err = same(tuple(k1), tuple(k1_plain))
+    k1_ms = cuda_ms(lambda: K.segsum_policy_cuda(
+        dom, mids, nseg, policy=pol, program=prog, block_rows=512), REPS)
+    kept = int((mids >= 0).sum())
+    k1_bytes = len(ids) * 4 + kept * dom.shape[1] * 4 \
+        + sum(c.numel() * 4 for c in k1)
+    k1_bound = max(k1_bytes / HBM_BYTES_PER_S,
+                   kept * dom.shape[1] / FP32_OPS_PER_S) * 1e3
+    print(f"check K1 compensated at the mean_logprob shape ({len(ids)} "
+          f"rows, {kept} kept, {nseg} sets): max|kernel-plain|={k1_err:g} "
+          f"{'bitwise' if ok else 'DIFFER'}; kernel {k1_ms:.4f} ms, bound "
+          f"{k1_bound:.4f} ms, plain {k1_plain_ms:.1f} ms | {smi}",
+          flush=True)
+    check(ok, "serve: K1 differs from its plain version at the "
+              "mean_logprob shape")
+    entries.append({
+        "name": "segsum_policy_kernel<compensated>/serve", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/segsum.cu",
+        "replaces": "src/repro/kernels/jugglepac_segsum.py:77",
+        "launches": k1_launches, "max_abs_err": k1_err, "ms": k1_ms,
+        "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
+        "bound_by": ("bytes" if k1_bytes / HBM_BYTES_PER_S
+                     >= kept * dom.shape[1] / FP32_OPS_PER_S
+                     else "operations"),
+        "library_ms": None})
+    del eng
+    torch.cuda.empty_cache()
+
+    # 1. batch independence: the same requests alone in fresh Engines,
+    # greedy tokens bitwise; exact2's mean_logprob bitwise too
+    batch2 = engine("exact2").generate(requests)
+    torch.cuda.empty_cache()
+    check([r.tokens for r in batch2] == [r.tokens for r in results],
+          "serve: the exact2 batch's tokens differ from the first run's")
+    hook = model.register_forward_hook(last_logits, with_kwargs=True)
+    for i in SERVE_ALONE:
+        alone = engine("exact2").generate([requests[i]])[0]
+        torch.cuda.empty_cache()
+        same_toks = alone.tokens == results[i].tokens
+        same_lp = alone.mean_logprob == batch2[i].mean_logprob
+        print(f"check request {i} (prompt {lens[i]}) alone vs in the "
+              f"batch: tokens {'bitwise' if same_toks else 'DIFFER'}; "
+              f"exact2 mean_logprob {alone.mean_logprob!r} / "
+              f"{batch2[i].mean_logprob!r} "
+              f"{'bitwise' if same_lp else 'DIFFER'}", flush=True)
+        check(same_toks and same_lp,
+              f"serve: request {i} depends on its batch")
+    # 3. the last decode step's logits (cache, K2) against one
+    # cache-free prefill forward over the same tokens (alone: slot 0)
+    seq = torch.tensor([alone.tokens[:-1]], device=dev)
+    with torch.no_grad():
+        ref = M.forward(model, tokens=seq, mode="prefill")[0][0, -1]
+    got = tap["logits"][0]
+    hook.remove()
+    rel = float((got - ref).abs().max() / ref.std())
+    agree = int(got[:cfg.vocab].argmax()) == int(ref[:cfg.vocab].argmax())
+    print(f"check request {SERVE_ALONE[-1]}'s last decode step (position "
+          f"{seq.shape[1] - 1}) vs forward(mode='prefill') over its "
+          f"{seq.shape[1]} tokens: max|diff| / std(logits) = {rel:.5f} "
+          f"(bound {SERVE_LOGIT_BOUND}), std {float(ref.std()):.4f}, argmax "
+          f"{'agrees' if agree else 'differs'}", flush=True)
+    check(bool(torch.isfinite(got).all()) and rel <= SERVE_LOGIT_BOUND,
+          "serve: decode logits outside the bound of the cache-free "
+          "forward")
+    del model, results, batch2
+    torch.cuda.empty_cache()
+    return entries
 
 
 def main(argv=None) -> int:
@@ -926,6 +1243,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     kernels += decode_phases(args.seed, dev, smi)
     kernels.append(intac_phase(args.seed, dev, smi))
+    kernels += serve_phase(args.seed, dev, smi)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

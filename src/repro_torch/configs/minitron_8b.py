@@ -1,0 +1,19 @@
+"""minitron-8b — 32L d_model=4096 32H (GQA kv=8) d_ff=16384 vocab=256000,
+pruned nemotron. [arXiv:2407.14679; hf]"""
+
+from repro_torch.models.config import BlockSpec, ModelConfig
+
+CONFIG = ModelConfig(
+    name="minitron-8b",
+    family="dense",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=16384,
+    vocab=256000,
+    period=(BlockSpec("attn", "swiglu"),),
+)
+
+SMOKE = CONFIG.scaled(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                      d_ff=256, vocab=512, dtype="float32")

@@ -1,0 +1,112 @@
+"""Basic layers: dense projections, norms, MLPs, rotary embeddings.
+
+The PyTorch counterparts of the reference's ``repro.models.layers``, as
+functions of plain tensors.  Every projection accumulates in float32 and
+rounds once to the activation dtype (``dense``), as the reference's
+``preferred_element_type=float32`` einsum does.  The reference's
+``shard_hint`` is dropped: the port runs on one device.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+NEG = -1e30
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., d) @ w (d, f) summed in float32, as float32.
+
+    A bf16 product is exact in float32, so on a CUDA device cuBLAS takes
+    the narrow operands and sums in float32 (``out_dtype``); PyTorch's
+    CPU backend has no such matmul, so there both are widened first.
+    """
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return torch.matmul(x, w)
+    if x.is_cuda and x.dtype == w.dtype:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(x.shape[:-1] + (w.shape[1],))
+    return torch.matmul(x.float(), w.float())
+
+
+def dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """x (..., d) @ w (d, f) with float32 accumulation, rounded once to
+    x's dtype."""
+    return matmul_f32(x, w).to(x.dtype)
+
+
+def rmsnorm(g: torch.Tensor, x: torch.Tensor, eps: float = 1e-5, *,
+            policy: Optional[str] = None) -> torch.Tensor:
+    """``policy=None``: the plain float32 mean square over the last axis.
+    A policy name routes the per-token mean square through
+    ``repro_torch.reduce`` instead (one (D, T) ``op="sumsq"`` pass, the
+    tokens as the element width), on x's device: K1 on a CUDA device."""
+    xf = x.float()
+    if policy is None:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    else:
+        from .. import reduce as _reduce
+        d = xf.shape[-1]
+        cols = xf.reshape(-1, d).T.contiguous()              # (D, T)
+        ssq = _reduce.reduce(cols, op="sumsq", policy=policy,
+                             device=x.device)
+        var = (ssq / d).reshape(xf.shape[:-1] + (1,))
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * g
+
+
+def swiglu(p, x: torch.Tensor) -> torch.Tensor:
+    """``p`` has ``wi``, ``wg`` (d, d_ff) and ``wo`` (d_ff, d)."""
+    h = F.silu(dense(p.wg, x).float()).to(x.dtype)
+    return dense(p.wo, h * dense(p.wi, x))
+
+
+def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    """``p`` has ``wi`` (d, d_ff) and ``wo`` (d_ff, d); the tanh form of
+    GELU, as ``jax.nn.gelu``'s default."""
+    h = F.gelu(dense(p.wi, x).float(), approximate="tanh").to(x.dtype)
+    return dense(p.wo, h)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens]
+
+
+def rope_freqs(hdim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hdim, 2, dtype=torch.float32,
+                                         device=device) / hdim))
+
+
+def rope_tables(positions: torch.Tensor, hdim: int, theta: float):
+    """(cos, sin), each (..., S, 1, hd/2) float32, of positions (..., S):
+    what ``apply_rope`` rotates by.  Every layer rotates by the same
+    tables, so a forward computes them once."""
+    freqs = rope_freqs(hdim, theta, positions.device)        # (hd/2,)
+    ang = positions[..., None].to(torch.float32) * freqs     # (..., S, hd/2)
+    ang = ang[..., None, :]                                  # (..., S, 1, hd/2)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 1e4, *, tables=None) -> torch.Tensor:
+    """x (..., S, H, hd); positions (..., S) integer.  ``tables``: the
+    ``rope_tables`` of these positions, if already computed."""
+    cos, sin = tables if tables is not None else \
+        rope_tables(positions, x.shape[-1], theta)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def causal_mask(s_q: int, s_k: int, *, offset: int = 0,
+                window: Optional[int] = None, device=None) -> torch.Tensor:
+    """(s_q, s_k) additive float32 mask; ``offset`` is the first query's
+    position: 0 where the key is visible, -1e30 elsewhere."""
+    qi = torch.arange(s_q, device=device)[:, None] + offset
+    kj = torch.arange(s_k, device=device)[None, :]
+    ok = kj <= qi
+    if window is not None:
+        ok &= kj > (qi - window)
+    return torch.where(ok, 0.0, NEG).to(torch.float32)

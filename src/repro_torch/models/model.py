@@ -1,0 +1,332 @@
+"""The language model: init, full-sequence forward, prefill and decode for
+the dense-attention architectures.
+
+The PyTorch counterpart of the reference's ``repro.models.model``, written
+as ``nn.Module``s: ``LM`` holds the embedding, one ``Block`` per layer
+(attention, then a SwiGLU or GELU MLP, each behind an rmsnorm) and the
+head.  The reference stacks each period position's parameters on a leading
+``n_periods`` axis and scans over it; here the layers are a plain loop
+(``_run_stack``), layer ``i * len(period) + j`` being period ``i``'s
+position ``j``.  The caches keep the reference's layout: one ``KVCache``
+per period position with a leading ``n_periods`` axis, so each layer's
+slice is contiguous.
+
+The port runs one architecture family: GQA attention (MHA included) with a
+dense KV cache and SwiGLU/GELU/no MLP.  A configuration that needs more
+raises ``NotImplementedError`` naming what is missing (``unsupported``).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+import torch.nn as nn
+
+from .. import resolve_device
+from . import attention as attn
+from .config import BlockSpec, ModelConfig
+from .layers import (embed_lookup, gelu_mlp, matmul_f32, rmsnorm,
+                     rope_tables, swiglu)
+
+_param = attn._param
+
+
+def unsupported(cfg: ModelConfig) -> List[str]:
+    """What ``cfg`` needs that the port's model lacks (empty: it runs)."""
+    missing = []
+    if cfg.attn_type == "mla":
+        missing.append("mla (latent attention)")
+    if cfg.window is not None:
+        missing.append("ring (window) caches")
+    for kind in ("mamba", "mlstm", "slstm"):
+        if any(sp.kind == kind for sp in cfg.period):
+            missing.append(kind)
+    if any(sp.mlp == "moe" for sp in cfg.period):
+        missing.append("moe")
+    if cfg.is_encdec:
+        missing.append("enc-dec")
+    if cfg.embed_inputs:
+        missing.append("embed_inputs")
+    if cfg.mrope:
+        missing.append("mrope")
+    return missing
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    missing = unsupported(cfg)
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: the PyTorch port has no {', '.join(missing)} yet; "
+            "it runs dense GQA attention models (e.g. stablelm-1.6b)")
+
+
+# ---------------------------------------------------------------------------
+# modules
+# ---------------------------------------------------------------------------
+
+
+class SwiGLU(nn.Module):
+    def __init__(self, d: int, d_ff: int, dtype, device):
+        super().__init__()
+        self.wi = _param((d, d_ff), dtype, device)
+        self.wg = _param((d, d_ff), dtype, device)
+        self.wo = _param((d_ff, d), dtype, device)
+
+    def forward(self, x):
+        return swiglu(self, x)
+
+
+class GeluMLP(nn.Module):
+    def __init__(self, d: int, d_ff: int, dtype, device):
+        super().__init__()
+        self.wi = _param((d, d_ff), dtype, device)
+        self.wo = _param((d_ff, d), dtype, device)
+
+    def forward(self, x):
+        return gelu_mlp(self, x)
+
+
+class Block(nn.Module):
+    """rmsnorm -> attention -> residual, then rmsnorm -> MLP -> residual."""
+
+    def __init__(self, spec: BlockSpec, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.cfg, self.spec = cfg, spec
+        self.norm1 = _param((cfg.d_model,), dtype, device)
+        self.core = attn.GQA(cfg, dtype, device)
+        if spec.mlp != "none":
+            self.norm2 = _param((cfg.d_model,), dtype, device)
+            mlp = SwiGLU if spec.mlp == "swiglu" else GeluMLP
+            self.mlp = mlp(cfg.d_model, cfg.d_ff, dtype, device)
+
+    def forward(self, x, *, positions, mode, cache=None, active=None,
+                rope=None):
+        return _apply_block(self, x, self.cfg, positions=positions,
+                            mode=mode, cache=cache, active=active, rope=rope)
+
+
+class LM(nn.Module):
+    """embed -> blocks -> final rmsnorm -> head.  ``forward`` returns
+    (logits (B, S, padded_vocab) float32, new caches, aux)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        dtype = getattr(torch, cfg.dtype)
+        self.embed = _param((cfg.padded_vocab, cfg.d_model), dtype, device)
+        self.blocks = nn.ModuleList(
+            Block(cfg.period[layer % len(cfg.period)], cfg, dtype, device)
+            for layer in range(cfg.n_layers))
+        self.final_norm = _param((cfg.d_model,), dtype, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = _param((cfg.d_model, cfg.padded_vocab), dtype,
+                                  device)
+
+    def hidden(self, tokens, *, positions, mode, caches=None, active=None):
+        x = embed_lookup(self.embed, tokens)
+        x, new_caches, aux = _run_stack(self, x, positions=positions,
+                                        mode=mode, caches=caches,
+                                        active=active)
+        x = rmsnorm(self.final_norm, x, self.cfg.norm_eps,
+                    policy=self.cfg.norm_reduce_policy)
+        return x, new_caches, aux
+
+    def forward(self, tokens, *, positions, mode: str = "train",
+                caches=None, active=None):
+        x, new_caches, aux = self.hidden(tokens, positions=positions,
+                                         mode=mode, caches=caches,
+                                         active=active)
+        logits = matmul_f32(x, _lm_head(self))
+        return logits, new_caches, aux
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
+                = None, device=None) -> LM:
+    """A model of ``cfg`` with random weights drawn from ``generator``, as
+    the reference draws them: the embedding N(0, 0.02^2), each projection
+    N(0, 1/d_in), norms ones; drawn in float32, then cast to
+    ``cfg.dtype``.  ``device=None`` means CUDA (``resolve_device``);
+    ``device="meta"`` gives the shapes alone and allocates nothing (no
+    generator needed).  The draws are made on the generator's device, so
+    one generator state gives the same weights whatever ``device`` is."""
+    dev = resolve_device(device)
+    model = LM(cfg, device=dev)
+    if dev.type == "meta":
+        return model
+    if generator is None:
+        raise ValueError("init_params needs a torch.Generator (or "
+                         "device='meta' for shapes alone)")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf.startswith("norm") or leaf == "final_norm":
+                p.fill_(1.0)
+                continue
+            scale = 0.02 if name == "embed" else p.shape[0] ** -0.5
+            w = torch.randn(p.shape, generator=generator,
+                            device=generator.device, dtype=torch.float32)
+            p.copy_((w * scale).to(p.dtype))
+    return model
+
+
+def param_bytes(model: nn.Module) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+# ---------------------------------------------------------------------------
+# blocks and the stack
+# ---------------------------------------------------------------------------
+
+
+def _apply_block(bp: Block, x, cfg: ModelConfig, *, positions, mode, cache,
+                 active=None, rope=None):
+    h = rmsnorm(bp.norm1, x, cfg.norm_eps, policy=cfg.norm_reduce_policy)
+    out, new_cache = bp.core(h, positions=positions, mode=mode, cache=cache,
+                             active=active, rope=rope)
+    x = x + out
+    if bp.spec.mlp != "none":
+        h2 = rmsnorm(bp.norm2, x, cfg.norm_eps,
+                     policy=cfg.norm_reduce_policy)
+        x = x + bp.mlp(h2)
+    return x, new_cache
+
+
+def _run_stack(model: LM, x, *, positions, mode, caches, active=None):
+    """Every layer in order.  ``caches``: one ``{"core": KVCache}`` per
+    period position, leaves with a leading ``n_periods`` axis, or None.
+    Returns (x, new caches in the same layout, aux)."""
+    cfg = model.cfg
+    pattern = cfg.period
+    rope = rope_tables(positions, cfg.hdim, cfg.rope_theta)
+    per_pos = [[] for _ in pattern]
+    for i in range(cfg.n_periods):
+        for j in range(len(pattern)):
+            c = None
+            if caches is not None:
+                full = caches[j]["core"]
+                c = attn.KVCache(full.k[i], full.v[i], full.length[i])
+            x, nc = model.blocks[i * len(pattern) + j](
+                x, positions=positions, mode=mode, cache=c, active=active,
+                rope=rope)
+            per_pos[j].append(nc)
+    new_caches = []
+    for j, ncs in enumerate(per_pos):
+        if ncs[0] is None:
+            new_caches.append({"core": None})
+        elif mode == "decode":                 # k, v written in place
+            full = caches[j]["core"]
+            new_caches.append({"core": attn.KVCache(
+                full.k, full.v, torch.stack([c.length for c in ncs]))})
+        else:
+            new_caches.append({"core": attn.KVCache(
+                *(torch.stack([getattr(c, f) for c in ncs])
+                  for f in attn.KVCache._fields))})
+    return x, new_caches, torch.zeros((), dtype=torch.float32,
+                                      device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# public API
+# ---------------------------------------------------------------------------
+
+
+def _default_positions(bsz: int, s: int, offset=0, device=None):
+    """``offset`` is a scalar (shared position) or a (B,) tensor (serving
+    slots in a continuous batch sit at per-request positions)."""
+    off = torch.as_tensor(offset, dtype=torch.int32, device=device)
+    pos = torch.arange(s, dtype=torch.int32, device=device)[None, :]
+    pos = pos + (off[:, None] if off.ndim == 1 else off)
+    return pos.expand(bsz, s)
+
+
+def _lm_head(model: LM) -> torch.Tensor:
+    return model.embed.T if model.cfg.tie_embeddings else model.lm_head
+
+
+def forward_hidden(model: LM, *, tokens, positions=None, mode: str = "train",
+                   caches=None, position_offset=0, active=None):
+    """Backbone only: (final-norm hidden states, caches, aux)."""
+    if positions is None:
+        positions = _default_positions(tokens.shape[0], tokens.shape[1],
+                                       position_offset, tokens.device)
+    return model.hidden(tokens, positions=positions, mode=mode,
+                        caches=caches, active=active)
+
+
+def forward(model: LM, *, tokens, positions=None, mode: str = "train",
+            caches=None, position_offset=0, active=None):
+    """Returns (logits (B, S, padded_vocab) float32, new caches, aux).
+    ``aux`` is the MoE load-balance term of the reference: always 0 here.
+    ``active`` (B,) bool, decode only: rows where it is False keep their
+    caches as they were."""
+    if positions is None:
+        positions = _default_positions(tokens.shape[0], tokens.shape[1],
+                                       position_offset, tokens.device)
+    return model(tokens, positions=positions, mode=mode, caches=caches,
+                 active=active)
+
+
+# ---------------------------------------------------------------------------
+# decode caches
+# ---------------------------------------------------------------------------
+
+
+def init_caches(cfg: ModelConfig, bsz: int, max_len: int, *, device=None,
+                dtype=torch.float32) -> list:
+    """Zeroed caches, one ``{"core": KVCache}`` per period position with a
+    leading ``n_periods`` axis: k, v (n, B, max_len, K, hd) in ``dtype``
+    (float32, the decode kernel's input, by default), length (n, B)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    n = cfg.n_periods
+    shape = (n, bsz, max_len, cfg.n_kv_heads, cfg.hdim)
+    return [{"core": attn.KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=dev),
+        v=torch.zeros(shape, dtype=dtype, device=dev),
+        length=torch.zeros((n, bsz), dtype=torch.int32, device=dev))}
+        for _ in cfg.period]
+
+
+def cache_bytes(caches) -> int:
+    return sum(t.numel() * t.element_size() for c in caches
+               for t in c["core"])
+
+
+def pad_caches_to(cfg: ModelConfig, caches, max_len: int):
+    """Grow prefill-shaped KV caches (sequence axis == prefill length) to
+    ``max_len`` with zero rows so decode can append."""
+    out = []
+    for c in caches:
+        core = c["core"]
+        padn = max_len - core.k.shape[2]            # (n, B, S, K, hd)
+        if padn > 0:
+            core = attn.KVCache(*(torch.nn.functional.pad(
+                t, (0, 0, 0, 0, 0, padn)) for t in (core.k, core.v)),
+                core.length)
+        out.append({**c, "core": core})
+    return out
+
+
+def decode_step(model: LM, token, caches, position, *, active=None):
+    """One serving step: token (B, s) -> (logits (B, s, V), new caches).
+
+    ``position`` is a scalar (lock-step batch) or a (B,) tensor of
+    per-request positions; each row appends at its own cache length.
+    ``s > 1`` columns are a chunked-prefill extend.  ``active``: see
+    ``forward``."""
+    logits, new_caches, _ = forward(model, tokens=token, mode="decode",
+                                    caches=caches, position_offset=position,
+                                    active=active)
+    return logits, new_caches
+
+
+__all__ = ["LM", "Block", "SwiGLU", "GeluMLP", "init_params", "forward",
+           "forward_hidden", "decode_step", "init_caches", "pad_caches_to",
+           "unsupported", "check_supported", "param_bytes", "cache_bytes"]

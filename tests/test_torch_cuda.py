@@ -385,3 +385,46 @@ def test_cuda_intac_bitwise_plain_and_int64(cuda):
         e = ia.intac_accum_cuda(torch.zeros(shape, device=cuda), 2.0 ** 20)
         assert e.shape == (2, shape[1]) and not e.any()
     assert ia.LAUNCHES == before + 2
+
+
+@pytest.mark.cuda
+def test_cuda_serve_engine_runs_k2_each_step_and_k1_for_the_mean(cuda):
+    """The smoke engine on the card: K2's count rises by one a layer at
+    every decode step, K1's by one when ``_finalize_logprobs`` takes the
+    mean; greedy tokens the same alone as batched."""
+    import importlib
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import Engine, Request
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
+    cfg = get_smoke_config("stablelm-1.6b")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    model = init_params(cfg, generator=gen, device=cuda)
+    steps = []
+    model.blocks[0].core.decode_attn.register_forward_hook(
+        lambda *a: steps.append(fd.LAUNCHES["dense"]))
+    rng = np.random.RandomState(3)
+    reqs = [Request(prompt=rng.randint(1, cfg.vocab, n).tolist(),
+                    max_new_tokens=6) for n in (5, 40, 17)]
+    eng = Engine(cfg, model, max_len=96, device=cuda)
+    for r in reqs:
+        eng.submit(r)
+    k1, k2 = [], []
+    before = fd.LAUNCHES["dense"]
+    K.LAUNCHES = 0
+
+    def on_step(e, step):
+        k1.append(K.LAUNCHES)
+        k2.append(fd.LAUNCHES["dense"])
+
+    res = eng.run(on_step=on_step)
+    torch.cuda.synchronize()
+    assert steps and fd.LAUNCHES["dense"] == before + len(steps) \
+        * cfg.n_layers
+    assert all(b - a == cfg.n_layers for a, b in zip(steps, steps[1:]))
+    assert set(k1) == {0} and K.LAUNCHES == 1
+    assert k2 == sorted(k2) and k2[-1] == fd.LAUNCHES["dense"]
+    assert all(np.isfinite(r.mean_logprob) for r in res)
+    alone = Engine(cfg, model, max_len=96, device=cuda).generate(reqs[1:2])
+    assert alone[0].tokens == res[1].tokens

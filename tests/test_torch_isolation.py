@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -35,7 +36,7 @@ def test_importing_every_module_loads_no_jax_or_reference():
     assert r.returncode == 0, r.stderr[-3000:]
     out = dict(line.split(" ", 1) for line in r.stdout.strip().splitlines())
     assert out["BAD"] == "[]"
-    assert int(out["LOADED"]) >= 15
+    assert int(out["LOADED"]) >= 43
 
 
 def _imported_roots(path: Path):
@@ -94,6 +95,35 @@ def test_kernel_entry_points_without_device_raise_when_cuda_is_absent(entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fn(*args, **kw)
     assert fn(*args, device="cpu", **kw).device.type == "cpu"
+
+
+@pytest.mark.parametrize("entry", ["init_params", "init_caches",
+                                   "params_from_numpy", "Engine"])
+def test_model_and_serve_entry_points_without_device_raise(entry):
+    """The model and the engine run on the card by default too; with
+    ``device="cpu"`` they run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None runs there")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import convert, init_caches, init_params
+    from repro_torch.serve import Engine
+    cfg = get_smoke_config("stablelm-1.6b")
+    g = torch.Generator().manual_seed(0)
+    model = init_params(cfg, generator=g, device="cpu")
+    tree = {"embed": np.zeros((cfg.padded_vocab, cfg.d_model), np.float32),
+            "blocks": []}
+    call = {"init_params": lambda **kw: init_params(cfg, generator=g, **kw),
+            "init_caches": lambda **kw: init_caches(cfg, 2, 8, **kw),
+            "params_from_numpy": lambda **kw: convert.params_from_numpy(
+                cfg, tree, **kw),
+            "Engine": lambda **kw: Engine(cfg, model, max_len=16, **kw)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call[entry]()
+    if entry == "params_from_numpy":   # on the CPU it reads the tree
+        with pytest.raises(RuntimeError, match="Missing key"):
+            call[entry](device="cpu")
+    else:
+        assert call[entry](device="cpu") is not None
 
 
 def test_chip_smoke_fails_without_cuda_and_prints_no_result(tmp_path):

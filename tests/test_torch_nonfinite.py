@@ -13,6 +13,11 @@
   spreads over every segment of its column; its ``contrib="lanes"`` form
   keeps it in its own segment, and so does the port in both forms.  The
   port's nonfinite cells equal the reference's lane-form cells.
+* Decode attention (F5, a pinned deviation): K2 and its plain version
+  skip a split of ``SPLIT_ROWS`` rows whose every row is masked, so a
+  +-Inf in a masked V row there never meets its zero weight; the
+  reference multiplies every row by its weight (0 * Inf = NaN).  In a
+  live split the masked row is read, and both give NaN.
 """
 
 import numpy as np
@@ -24,6 +29,7 @@ import jax.numpy as jnp  # noqa: E402
 
 import repro  # noqa: E402
 import repro_torch  # noqa: E402
+from repro.kernels import ops as R  # noqa: E402
 from repro.kernels.intac_accum import intac_accum_pallas  # noqa: E402
 from repro_torch.kernels import ops as T  # noqa: E402
 from repro_torch.kernels.intac_accum import intac_accum_torch  # noqa: E402
@@ -130,3 +136,37 @@ def test_float_tier_nonfinite_cells_pin_the_lane_form(policy, contrib):
     assert bad.sum() == 2 and bad[ids[7], 1] and bad[ids[600], 2]
     assert (~np.isfinite(dot)).sum() > bad.sum()       # the spread
     assert np.array_equal(np.isnan(got), np.isnan(lanes))
+
+
+@pytest.mark.parametrize("bad", [np.inf, -np.inf])
+@pytest.mark.parametrize("where", ["dead split", "live split"])
+def test_decode_masked_nonfinite_v_row_f5_pinned(where, bad):
+    """B=1, H=2, K=1, d=8, S=4,096, kv_len=100: splits of 1,024 rows, only
+    the first live.  A nonfinite V row past kv_len in a dead split (rows
+    3,000 on): the reference gives NaN, the port the finite attention of
+    the live rows, equal to the same input without the bad rows.  In the
+    live split (row 500): both give NaN."""
+    from repro_torch.kernels.flash_decode import SPLIT_ROWS
+    assert SPLIT_ROWS == 1024
+    rng = np.random.default_rng(12)
+    q = rng.standard_normal((1, 2, 8)).astype(np.float32)
+    k = rng.standard_normal((1, 4096, 1, 8)).astype(np.float32)
+    v = rng.standard_normal((1, 4096, 1, 8)).astype(np.float32)
+    clean = v.copy()
+    rows = slice(3000, None) if where == "dead split" else slice(500, 501)
+    v[:, rows] = bad
+    kv_len = np.array([100], np.int32)
+    want = np.asarray(R.flash_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(kv_len),
+        sm_scale=8 ** -0.5, interpret=True))
+    got = T.flash_decode(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                         torch.tensor(kv_len), sm_scale=8 ** -0.5,
+                         device="cpu").numpy()
+    assert np.isnan(want).all()
+    if where == "dead split":
+        assert np.isfinite(got).all()
+        assert np.array_equal(got, T.flash_decode(
+            torch.tensor(q), torch.tensor(k), torch.tensor(clean),
+            torch.tensor(kv_len), sm_scale=8 ** -0.5, device="cpu").numpy())
+    else:
+        assert np.isnan(got).all()

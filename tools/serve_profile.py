@@ -1,0 +1,120 @@
+#!/usr/bin/env python3
+"""Where a serving step's time goes on the GPU.
+
+    python3 tools/serve_profile.py [--seed 0] [--steps 4]   # needs CUDA
+
+Builds stablelm-1.6b at full width (bf16, random weights from ``--seed``)
+and ``chip_smoke.py``'s serving engine (8 slots x 1,024 context, 32-token
+prefill chunks), fills the slots with one ``generate`` of 8 prompts of
+64-768 tokens, then times and profiles, each after a warm-up:
+
+  * a decode step of all 8 slots (``decode_step`` with every row active,
+    each call writing the same cache row);
+  * a 32-token prefill chunk of slot 0 (``Engine._prefill_chunk``).
+
+For each it prints the wall time per call (host clock around
+synchronized calls), the device's busy time per call (the sum of the CUDA
+kernels' times in a ``torch.profiler`` trace, one stream), the idle share
+(1 - busy / wall), and the ops with the most device time and the most
+host time.  The card's name and power limit come first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "src"))
+
+
+def profile(label, fn, steps, top):
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+
+    def dev(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels = [e for e in events
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy = sum(dev(e) for e in kernels) / 1e3 / steps
+    print(f"{label}: wall {wall:.3f} ms a call (host clock), device busy "
+          f"{busy:.3f} ms a call (profiler, {len(kernels)} kernel kinds), "
+          f"idle share {1 - busy / wall:.3f}", flush=True)
+    print(f"  by device time (ms a call, calls a call):")
+    for e in sorted(kernels, key=dev, reverse=True)[:top]:
+        print(f"    {dev(e) / 1e3 / steps:9.4f}  {e.count / steps:7.1f}  "
+              f"{e.key[:90]}")
+    ops = [e for e in events if e not in kernels]
+    print(f"  by host time (self, ms a call, calls a call):")
+    for e in sorted(ops, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:top]:
+        print(f"    {e.self_cpu_time_total / 1e3 / steps:9.4f}  "
+              f"{e.count / steps:7.1f}  {e.key[:90]}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--top", type=int, default=14)
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("serve_profile: needs a CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine, Request
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    dev = torch.device("cuda")
+    cfg = get_config("stablelm-1.6b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    model = M.init_params(cfg, generator=gen, device=dev)
+    eng = Engine(cfg, model, max_len=1024, max_batch=8, prefill_chunk=32,
+                 device=dev)
+    host = torch.Generator()
+    host.manual_seed(args.seed + 1)
+    lens = torch.randint(64, 769, (8,), generator=host).tolist()
+    reqs = [Request(prompt=torch.randint(1, cfg.vocab, (n,),
+                                         generator=host).tolist(),
+                    max_new_tokens=8) for n in lens]
+    res = eng.generate(reqs)
+    lengths = eng._caches[0]["core"].length[0].clone()
+    toks = torch.tensor([[r.tokens[-1]] for r in res], device=dev)
+    active = torch.ones(8, dtype=torch.bool, device=dev)
+    chunk = torch.tensor([reqs[0].prompt[:32]], device=dev)
+    print(f"prompts {lens}; cache lengths {lengths.tolist()}", flush=True)
+    with torch.no_grad():
+        profile("decode step (B=8)", lambda: M.decode_step(
+            model, toks, eng._caches, lengths, active=active), args.steps,
+            args.top)
+        profile("prefill chunk (32 tokens)", lambda: eng._prefill_chunk(
+            0, chunk, 0, 32), args.steps, args.top)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
