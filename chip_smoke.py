@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port: ``python3 chip_smoke.py``.
 
-Drives the port's three paths on one NVIDIA GPU.  First the reduce
+Drives the port's four paths on one NVIDIA GPU.  First the reduce
 front door: ``repro_torch.reduce(values, segment_ids=, num_segments=1024,
 policy=p)`` once per accuracy tier, at N=4,000,000 rows x D=64 f32 in
 1,024 back-to-back variable-length sets (about 1% of rows labeled
@@ -11,8 +11,11 @@ the kernel entry points ``repro_torch.kernels.flash_decode``,
 width (H=48, K=8, d=128) over a decode batch of 16 requests x 32,768 f32
 KV rows, and at N=32,768 x D=6,144 for INTAC.  The serving path:
 stablelm-1.6b at full width (bf16, random weights) through the port's
-``Engine``, decode attention on K2 and ``mean_logprob`` on K1.  All data
-is drawn from ``--seed``.  Phases, in order; any failure exits nonzero:
+``Engine``, decode attention on K2 and ``mean_logprob`` on K1.  The
+training path: stablelm-1.6b at full width through the port's train step
+(the JugglePAC gradient juggler; microbatch gradients and the clip norm
+on K1; AdamW).  All data is drawn from ``--seed``.  Phases, in order; any
+failure exits nonzero:
 
 1. device — the card's name and power limit, as nvidia-smi prints them;
 2. build  — every CUDA source, one nvcc each, in parallel;
@@ -69,10 +72,26 @@ is drawn from ``--seed``.  Phases, in order; any failure exits nonzero:
    ``forward(mode="prefill")`` over its tokens, max |diff| / std within
    ``SERVE_LOGIT_BOUND``; K1 bitwise at the ``mean_logprob`` shape;
    timings: a decode step, a prefill chunk, K2 per layer per step
-   against its bound and SDPA, the parameter and cache bytes.
+   against its bound and SDPA, the parameter and cache bytes;
+11. train — stablelm-1.6b's ``CONFIG`` (random weights from the seed)
+   on one ``SyntheticLM`` batch of 8 x 256 tokens, 4 microbatches, AdamW
+   on ``cosine_schedule(1e-4, 1, 5)``: (1) five juggler steps, the loss
+   finite and lower at step 5 than at step 1, K1 launched by none;
+   (2) one step's four microbatch gradients through
+   ``accumulate_microbatch_grads`` bitwise (0 + ((g1 + g2) + (g3 + g4)))
+   / 4 written out in bf16; (3) ``reduce_microbatch_grads`` and
+   ``global_norm`` under ``exact`` on the ``cuda`` backend bitwise the
+   ``blocked`` executor at full width, and under ``exact2`` and
+   ``procrastinate`` at 2 layers (full width otherwise), every K1 launch
+   of a step also bitwise its plain version; (4) a step with
+   ``grad_reduce`` and ``norm_policy`` set launches K1 exactly 37 times
+   (counts set to 0 just before, read just after); timings: ms per
+   juggler and exact step, tokens/s, peak memory, and K1's and the
+   domain preparation's ms inside an exact step.
 
 Times are CUDA-event medians after a warm-up (plain versions: one
-host-clock run); the bound is the least time the card could take, bytes
+host-clock run; K1 on the train path: the sum over a step's launches,
+each a median); the bound is the least time the card could take, bytes
 moved over 3.35 TB/s or operations over 67 T/s, whichever is larger,
 counting only what this run's data needs (the rows of kept labels; the
 KV rows below each request's length, every row for K3, which emits every
@@ -134,6 +153,25 @@ SERVE_TAP_STEP = 24
 #: wrong position, mask or cache row, which moves logits by about their
 #: whole spread.
 SERVE_LOGIT_BOUND = 0.25
+
+
+#: the train phase: stablelm-1.6b at full width, one ``SyntheticLM``
+#: batch of B=8 x S=256 tokens from ``--seed``, 4 microbatches of 2 rows,
+#: AdamW on ``cosine_schedule(1e-4, 1, 5)``.  At a peak of 1e-3 the first
+#: step (every weight moved by about lr, against weights of about 0.02)
+#: overshoots: the loss went from 11.86 to 19.42 and stood at 14.03 after
+#: five steps on the card
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB = "stablelm-1.6b", 8, 256, 4
+TRAIN_STEPS, TRAIN_LR = 5, 1e-4
+#: exact2 and procrastinate train at n_layers=2: their digit domain of
+#: one stacked mlp leaf at 24 layers would take 35 GB (8 planes x 4 rows
+#: x 276,824,064 columns x 4 bytes), and 26 GB
+TRAIN_CUT_LAYERS = 2
+#: K1 launches of a dense model's step with grad_reduce and norm_policy
+#: set: one microbatch mean per reference leaf (12), two launches a leaf
+#: for the norm's sums of squares (24) and one across the leaves
+TRAIN_LEAVES = 12
+K1_PER_STEP = TRAIN_LEAVES + 2 * TRAIN_LEAVES + 1
 
 
 def fail(msg: str) -> int:
@@ -283,6 +321,8 @@ def same(a, b):
     a = a if isinstance(a, tuple) else (a,)
     b = b if isinstance(b, tuple) else (b,)
     ok = all(torch.equal(x, y) for x, y in zip(a, b))
+    if ok:          # no float64 copies of a carry that may take GBs
+        return ok, 0.0
     err = max(float((x.double() - y.double()).abs().max())
               for x, y in zip(a, b))
     return ok, err
@@ -961,6 +1001,430 @@ def serve_phase(seed, dev, smi):
     return entries
 
 
+class K1Probe:
+    """Inside ``with``: each K1 launch and each integer tier's domain
+    preparation bracketed by CUDA events (``k1_ms``, ``prep_ms`` sum them
+    after a synchronize).  With ``measure``, each launch is also run
+    alone: timed (``cuda_ms``), its plain version run once on the same
+    inputs (host clock) and held bitwise, and for an unsegmented ``exact``
+    stream ``torch.sum`` over the rows timed (the same int32 column sums);
+    the probe's own launches are taken off K1's count."""
+
+    def __init__(self, measure: bool = False):
+        self.measure = measure
+        self.k1, self.prep, self.records = [], [], []
+        self.caller = None          # set by ``K1ByCaller``; kept per record
+
+    def __enter__(self):
+        from repro_torch.kernels import jugglepac_segsum as K
+        from repro_torch.reduce import get_policy
+        self.K, self.real = K, K.segsum_policy_cuda
+        K.segsum_policy_cuda = self._launch
+        self.pols = [get_policy(t) for t in INT_TIERS]
+        for pol in self.pols:
+            pol.prepare = self._prepare_of(pol)
+        return self
+
+    def __exit__(self, *exc):
+        self.K.segsum_policy_cuda = self.real
+        for pol in self.pols:
+            del pol.prepare               # the class's method again
+
+    @staticmethod
+    def _events():
+        import torch
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    def _prepare_of(self, pol):
+        real = type(pol).prepare.__get__(pol)
+
+        def prepare(values, num_terms, **kw):
+            a, b = self._events()
+            a.record()
+            out = real(values, num_terms, **kw)
+            b.record()
+            self.prep.append((a, b))
+            return out
+        return prepare
+
+    def _launch(self, values, ids, num_segments, **kw):
+        a, b = self._events()
+        a.record()
+        out = self.real(values, ids, num_segments, **kw)
+        b.record()
+        self.k1.append((a, b))
+        if self.measure:
+            self._measure(values, ids, num_segments, kw, out)
+        return out
+
+    def _measure(self, values, ids, num_segments, kw, out):
+        import torch
+        K = self.K
+        count = K.LAUNCHES
+        pol, block = kw["policy"], kw["block_rows"]
+        ms = cuda_ms(lambda: self.real(values, ids, num_segments, **kw),
+                     REPS)
+        n, w = values.shape
+        pad = (-n) % block
+        pv = torch.cat([values, values.new_zeros((pad, w))]) if pad \
+            else values
+        pi = torch.cat([ids, ids.new_full((pad,), -1)]) if pad else ids
+        plain_ms, plain = host_ms(lambda: K.segsum_policy_torch(
+            pv, pi, num_segments, policy=pol, program=kw.get("program"),
+            block_rows=block))
+        del pv, pi
+        ok, err = same(tuple(out), tuple(plain))
+        del plain
+        lib_ms = None
+        if pol.name == "exact" and num_segments == 1:
+            lib_ms = cuda_ms(lambda: values.sum(0, dtype=torch.int32), REPS)
+        kept = int(((ids >= 0) & (ids < num_segments)).sum())
+        self.records.append({
+            "caller": self.caller, "policy": pol.name, "shape": (n, w),
+            "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "ok": ok,
+            "err": err, "ops": kept * w,
+            "bytes": n * 4 + kept * w * 4 + sum(c.numel() * 4 for c in out)})
+        K.LAUNCHES = count
+
+    def k1_ms(self):
+        import torch
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.k1)
+
+    def prep_ms(self):
+        import torch
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.prep)
+
+
+class K1ByCaller:
+    """Inside ``with``: K1's launches counted by the train step's caller,
+    read from ``LAUNCHES`` around each call (``counts``):
+    ``grad_reduce`` (``reduce_microbatch_grads``, the microbatch mean) and
+    ``global_norm`` (``adamw.global_norm``, the clip's norm).  A
+    ``K1Probe`` given here tags its records with the caller."""
+
+    def __init__(self, probe=None):
+        self.probe = probe
+        self.counts = {"grad_reduce": 0, "global_norm": 0}
+
+    def __enter__(self):
+        from repro_torch.optim import adamw
+        from repro_torch.train import steps
+        self.saved = [(steps, "reduce_microbatch_grads", "grad_reduce"),
+                      (adamw, "global_norm", "global_norm")]
+        for mod, attr, caller in self.saved:
+            setattr(mod, attr, self._counted(getattr(mod, attr), caller))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, _ in self.saved:
+            setattr(mod, attr, getattr(mod, attr).__wrapped__)
+
+    def _counted(self, real, caller):
+        from repro_torch.kernels import jugglepac_segsum as K
+
+        def call(*args, **kw):
+            before = K.LAUNCHES
+            if self.probe is not None:
+                self.probe.caller = caller
+            try:
+                return real(*args, **kw)
+            finally:
+                self.counts[caller] += K.LAUNCHES - before
+                if self.probe is not None:
+                    self.probe.caller = None
+        call.__wrapped__ = real
+        return call
+
+
+def k1_train_entry(name, records, launches):
+    """One kernel-table entry for the K1 launches of a train step: the
+    sums over those launches (kernel, plain, library and bound ms) and
+    the largest kernel-vs-plain difference."""
+    bytes_ = sum(r["bytes"] for r in records)
+    ops_ = sum(r["ops"] for r in records)
+    lib = [r["library_ms"] for r in records]
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/segsum.cu",
+            "replaces": "src/repro/kernels/jugglepac_segsum.py:77",
+            "launches": launches,
+            "max_abs_err": max(r["err"] for r in records),
+            "ms": sum(r["ms"] for r in records),
+            "plain_ms": sum(r["plain_ms"] for r in records),
+            "bound_ms": sum(max(r["bytes"] / HBM_BYTES_PER_S,
+                                r["ops"] / FP32_OPS_PER_S)
+                            for r in records) * 1e3,
+            "bound_by": ("bytes" if bytes_ / HBM_BYTES_PER_S
+                         >= ops_ / FP32_OPS_PER_S else "operations"),
+            "library_ms": None if None in lib else sum(lib)}
+
+
+def microbatch_grads(model, batch, m):
+    """Each microbatch's gradients in the reference's layout, as the train
+    step's autograd pass computes them (remat on)."""
+    import torch
+    from repro_torch.models import convert
+    from repro_torch.models import model as M
+    model.requires_grad_(True)
+    named = dict(model.named_parameters())
+    out = []
+    for i in range(m):
+        mb = {k: v.reshape((m, v.shape[0] // m) + v.shape[1:])[i]
+              for k, v in batch.items()}
+        loss, _ = M.loss_fn(model, mb, remat=True)
+        g = torch.autograd.grad(loss, list(named.values()))
+        out.append(convert.to_reference(model.cfg, dict(zip(named, g))))
+        del loss, g
+    return out
+
+
+def check_juggler(gs):
+    """Check 2: ``accumulate_microbatch_grads`` over four microbatch
+    gradients bitwise (0 + ((g1 + g2) + (g3 + g4))) / 4, written out in
+    the leaf dtype."""
+    import torch
+    from repro_torch.reduce import accumulate_microbatch_grads
+    acc, _ = accumulate_microbatch_grads(
+        lambda _, i: (gs[int(i)], torch.zeros(())), None,
+        torch.arange(len(gs)), num_microbatches=len(gs))
+    ok = True
+    for k in acc:
+        g1, g2, g3, g4 = (g[k] for g in gs)
+        want = (torch.zeros_like(g1) + ((g1 + g2) + (g3 + g4))) \
+            / torch.tensor(4.0, dtype=g1.dtype, device=g1.device)
+        ok &= torch.equal(acc[k], want)
+    print(f"check juggler: accumulate_microbatch_grads over {len(gs)} "
+          f"microbatch gradients ({acc['embed'].dtype}) "
+          f"{'bitwise' if ok else 'DIFFER'} (0 + ((g1 + g2) + (g3 + g4))) "
+          f"/ 4 in every leaf", flush=True)
+    check(ok, "train: the juggler's sum differs from its schedule")
+
+
+def check_grad_reductions(gs, tier, what):
+    """Check 3: ``reduce_microbatch_grads`` and ``global_norm`` under
+    ``tier`` on the ``cuda`` backend (K1: one launch a leaf; two a leaf
+    and one more for the norm) bitwise the ``blocked`` executor on the
+    same gradients.  Returns the mean gradients."""
+    import torch
+    from repro_torch.kernels import jugglepac_segsum as K
+    from repro_torch.optim import adamw
+    from repro_torch.reduce import reduce_microbatch_grads
+
+    def fn(_, i):
+        return gs[int(i)], torch.zeros(())
+
+    m = len(gs)
+    idx = torch.arange(m)
+    K.LAUNCHES = 0
+    cuda, _ = reduce_microbatch_grads(fn, None, idx, num_microbatches=m,
+                                      policy=tier)
+    torch.cuda.synchronize()
+    mean_launches = K.LAUNCHES
+    plain, _ = reduce_microbatch_grads(fn, None, idx, num_microbatches=m,
+                                       policy=tier, backend="blocked")
+    ok_mean = all(torch.equal(cuda[k], plain[k]) for k in cuda)
+    del plain
+    K.LAUNCHES = 0
+    norm = adamw.global_norm(cuda, policy=tier)
+    torch.cuda.synchronize()
+    norm_launches = K.LAUNCHES
+    norm_plain = adamw.global_norm(cuda, policy=tier, backend="blocked")
+    ok_norm = torch.equal(norm, norm_plain)
+    print(f"check {what} {tier}: reduce_microbatch_grads over {m} "
+          f"microbatches, {len(cuda)} leaves (largest "
+          f"{max(v.numel() for v in cuda.values())} values): cuda vs blocked "
+          f"{'bitwise' if ok_mean else 'DIFFER'}, K1 launches "
+          f"{mean_launches}; global_norm {float(norm)!r} vs "
+          f"{float(norm_plain)!r} {'bitwise' if ok_norm else 'DIFFER'}, K1 "
+          f"launches {norm_launches}", flush=True)
+    check(ok_mean and ok_norm and mean_launches == len(cuda)
+          and norm_launches == 2 * len(cuda) + 1,
+          f"train {what}: {tier} on the cuda backend differs from blocked "
+          f"or launched K1 {mean_launches} + {norm_launches} times")
+    return cuda
+
+
+def train_phase(seed, dev, smi):
+    """Phase 11: the training path at stablelm-1.6b's full width through
+    the port's train step; returns K1's train-path kernel entries."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataCfg, SyntheticLM
+    from repro_torch.kernels import jugglepac_segsum as K
+    from repro_torch.models import convert
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train import init_state, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 21)
+    model = M.init_params(cfg, generator=gen, device=dev)
+    data = SyntheticLM(DataCfg(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH, seed=seed))
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in data.batch(0).items()}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    lr_fn = adamw.cosine_schedule(TRAIN_LR, 1, TRAIN_STEPS)
+    print(f"train: {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{cfg.dtype}), {sum(p.numel() for p in model.parameters())} "
+          f"parameters in {len(convert.reference_leaves(cfg))} reference "
+          f"leaves; batch {TRAIN_BATCH} x {TRAIN_SEQ} (SyntheticLM seed "
+          f"{seed}), {TRAIN_MB} microbatches, lr cosine({TRAIN_LR}, 1, "
+          f"{TRAIN_STEPS}), remat on", flush=True)
+
+    def stepper(step, state):
+        hold = {"model": model, "state": state}
+
+        def one():
+            hold["model"], hold["state"], hold["metrics"] = step(
+                hold["model"], hold["state"], batch)
+        return hold, one
+
+    # 1. the juggler: five steps on the same batch, the loss falls; no
+    # kernel of the port on this path (counts set to 0 just before)
+    step = make_train_step(cfg, lr_fn=lr_fn, num_microbatches=TRAIN_MB,
+                           device=dev)
+    hold, one = stepper(step, init_state(model))
+    K.LAUNCHES = 0
+    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_STEPS):
+        one()
+        losses.append(float(hold["metrics"]["loss"]))
+    torch.cuda.synchronize()
+    jug_launches = K.LAUNCHES
+    print(f"main train (juggler, m={TRAIN_MB}): losses {losses}, grad norm "
+          f"{float(hold['metrics']['grad_norm']):.4f}, K1 launches "
+          f"{jug_launches}", flush=True)
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
+          and jug_launches == 0,
+          f"train: the juggler's losses {losses} did not fall, or K1 ran "
+          f"{jug_launches} times")
+    jug_ms = cuda_ms(one, REPS)
+    jug_peak = torch.cuda.max_memory_allocated()
+    del hold, one, step
+    torch.cuda.empty_cache()
+
+    # 4. grad_reduce and norm_policy under exact: K1 37 times a step
+    step = make_train_step(cfg, lr_fn=lr_fn, num_microbatches=TRAIN_MB,
+                           grad_reduce="exact", norm_policy="exact",
+                           device=dev)
+    hold, one = stepper(step, init_state(model))
+    torch.cuda.reset_peak_memory_stats()
+    K.LAUNCHES = 0
+    with K1ByCaller() as calls:
+        one()
+    torch.cuda.synchronize()
+    exact_launches, by_caller = K.LAUNCHES, calls.counts
+    met = hold["metrics"]
+    print(f"main train (grad_reduce=exact, norm_policy=exact, m="
+          f"{TRAIN_MB}): loss {float(met['loss']):.4f}, grad norm "
+          f"{float(met['grad_norm']):.4f}, K1 launches {exact_launches} "
+          f"(want {K1_PER_STEP}): grad_reduce {by_caller['grad_reduce']}, "
+          f"global_norm {by_caller['global_norm']}", flush=True)
+    check(exact_launches == K1_PER_STEP
+          and by_caller == {"grad_reduce": TRAIN_LEAVES,
+                            "global_norm": 2 * TRAIN_LEAVES + 1}
+          and bool(torch.isfinite(met["loss"]))
+          and bool(torch.isfinite(met["grad_norm"])),
+          f"train: the exact step launched K1 {exact_launches} times "
+          f"({by_caller})")
+    exact_ms = cuda_ms(one, REPS)
+    exact_peak = torch.cuda.max_memory_allocated()
+    with K1Probe() as probe:
+        step_ms = cuda_ms(one, 1, warmup=0)
+    in_step_k1, in_step_prep = probe.k1_ms(), probe.prep_ms()
+    with K1Probe(measure=True) as probe, K1ByCaller(probe):
+        one()
+    check(all(r["ok"] for r in probe.records)
+          and len(probe.records) == K1_PER_STEP
+          and all(r["caller"] in by_caller for r in probe.records),
+          "train: K1 differs from its plain version on a train step's "
+          "launches")
+    entries = [k1_train_entry(f"segsum_policy_kernel<exact>/train {c}",
+                              [r for r in probe.records
+                               if r["caller"] == c], by_caller[c])
+               for c in ("grad_reduce", "global_norm")]
+    big = max((r["shape"] for r in probe.records), key=lambda s: s[0] * s[1])
+    print(f"check K1 exact on the step's {len(probe.records)} launches "
+          f"(largest stream {big[0]} x {big[1]}): every one bitwise its "
+          f"plain version", flush=True)
+    print(f"time train: juggler step {jug_ms:.3f} ms ({tokens * 1e3 / jug_ms:.1f} "
+          f"tokens/s, peak memory {jug_peak / 2 ** 30:.2f} GiB) | exact step "
+          f"{exact_ms:.3f} ms ({tokens * 1e3 / exact_ms:.1f} tokens/s, peak "
+          f"memory {exact_peak / 2 ** 30:.2f} GiB) | inside one exact step "
+          f"of {step_ms:.3f} ms: K1 {in_step_k1:.3f} ms ({K1_PER_STEP} "
+          f"launches), domain preparation {in_step_prep:.3f} ms | K1 "
+          f"grad_reduce {entries[0]['ms']:.3f} ms (bound "
+          f"{entries[0]['bound_ms']:.3f}, plain {entries[0]['plain_ms']:.1f}, "
+          f"torch.sum {entries[0]['library_ms']:.3f}), global_norm "
+          f"{entries[1]['ms']:.3f} ms (bound {entries[1]['bound_ms']:.3f}, "
+          f"plain {entries[1]['plain_ms']:.1f}, torch.sum "
+          f"{entries[1]['library_ms']}) | {smi}", flush=True)
+    del hold, one, step, probe
+    torch.cuda.empty_cache()
+
+    # 2. one step's four microbatch gradients through the juggler:
+    # bitwise the pairing written by hand in the leaf dtype
+    gs = microbatch_grads(model, batch, TRAIN_MB)
+    del model
+    torch.cuda.empty_cache()
+    check_juggler(gs)
+    # 3. K1 against blocked at full width (exact)
+    check_grad_reductions(gs, "exact", "full width")
+    del gs
+    torch.cuda.empty_cache()
+
+    # exact2 and procrastinate at n_layers=2
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS)
+    gen.manual_seed(seed + 22)
+    small = M.init_params(cut, generator=gen, device=dev)
+    for tier in ("exact2", "procrastinate"):
+        step = make_train_step(cut, lr_fn=lr_fn, num_microbatches=TRAIN_MB,
+                               grad_reduce=tier, norm_policy=tier,
+                               device=dev)
+        state = init_state(small)
+        K.LAUNCHES = 0
+        small, state, met = step(small, state, batch)
+        torch.cuda.synchronize()
+        launches = K.LAUNCHES
+        check(launches == K1_PER_STEP and bool(torch.isfinite(met["loss"])),
+              f"train: the {tier} step (n_layers={TRAIN_CUT_LAYERS}) "
+              f"launched K1 {launches} times")
+        loss = float(met["loss"])
+        del step, state, met
+        torch.cuda.empty_cache()
+        # the same reductions on one step's microbatch gradients, each K1
+        # launch also timed and held against its plain version (no model
+        # or moments alive: an embedding-wide exact2 domain is 26 GB)
+        gs = microbatch_grads(small, batch, TRAIN_MB)
+        with K1Probe(measure=True) as probe:
+            check_grad_reductions(gs, tier, f"n_layers={TRAIN_CUT_LAYERS}")
+        check(all(r["ok"] for r in probe.records)
+              and len(probe.records) == K1_PER_STEP,
+              f"train: K1 {tier} differs from its plain version")
+        entry = k1_train_entry(f"segsum_policy_kernel<{tier}>/train "
+                               f"n_layers={TRAIN_CUT_LAYERS}",
+                               probe.records, launches)
+        print(f"main train ({tier}, n_layers={TRAIN_CUT_LAYERS}): loss "
+              f"{loss:.4f}, K1 launches {launches}, each of a step's "
+              f"{len(probe.records)} bitwise its plain version; K1 "
+              f"{entry['ms']:.3f} ms a step (bound {entry['bound_ms']:.3f}, "
+              f"plain {entry['plain_ms']:.1f}) | {smi}", flush=True)
+        entries.append(entry)
+        del gs, probe
+        torch.cuda.empty_cache()
+    del small
+    torch.cuda.empty_cache()
+    return entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1244,6 +1708,7 @@ def main(argv=None) -> int:
     kernels += decode_phases(args.seed, dev, smi)
     kernels.append(intac_phase(args.seed, dev, smi))
     kernels += serve_phase(args.seed, dev, smi)
+    kernels += train_phase(args.seed, dev, smi)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -456,7 +456,9 @@ __device__ __forceinline__ void int_block(const Args& a, long long r0,
     const int p = piece / sp.per_plane;
     const int c = (piece - p * sp.per_plane) * VEC;
     const bool col_ok = c < cols;         // a piece lies in or past cols
-    const In* src = vals + p * a.d + d0 + c;
+    // plane p of the row: 64-bit, since P * d may pass 2^31 (exact2 at a
+    // stacked gradient leaf's width)
+    const In* src = vals + static_cast<long long>(p) * a.d + d0 + c;
     int* cell = sc + p * ct + c;          // + label * stride
     const int j1 = min(B, (run + 1) * sp.run_rows);
     int cur = -1;                         // the run's tile-local label

@@ -104,17 +104,45 @@ def block_label_ranges_cuda(ids: torch.Tensor, block_rows: int,
     return ranges
 
 
+def _plane_cols(x: torch.Tensor, d: int, c0: int, c1: int) -> torch.Tensor:
+    """Raw columns [c0, c1) of each d-wide plane of x (rows, k * d), the
+    planes kept in order: a domain or a carry cut to those columns."""
+    k = x.shape[1] // d
+    if k == 1:
+        return x[:, c0:c1]
+    return torch.cat([x[:, j * d + c0:j * d + c1] for j in range(k)], 1)
+
+
 def segsum_policy_torch(values: torch.Tensor, ids: torch.Tensor,
                         num_segments: int, *, policy, program=None,
                         block_rows: int = 512, seg_offset: int = 0):
     """The plain version: values (N, W) in the policy's domain with N a
     multiple of ``block_rows``, ids (N,) int32 -> the carry tuple.
     Gathers contributions in batches of blocks, then folds them one
-    block at a time, in order."""
+    block at a time, in order.  Every tier sums each raw column on its
+    own, so a stream whose one block's contribution would pass
+    ``_CONTRIB_ELEMS`` cells runs in slices of raw columns (all planes
+    of each), with the same bits and bounded memory."""
     n, w = values.shape
     if n % block_rows:
         raise ValueError(f"segsum_policy_torch: N={n} must be a multiple "
                          f"of block_rows={block_rows}; pad in the caller")
+    d = w // policy.parts
+    cols = max(1, _CONTRIB_ELEMS // max(1, num_segments * policy.parts))
+    if d > cols:
+        carry = policy.init(num_segments, w, device=values.device)
+        for c0 in range(0, d, cols):
+            c1 = min(d, c0 + cols)
+            part = segsum_policy_torch(
+                _plane_cols(values, d, c0, c1).contiguous(), ids,
+                num_segments, policy=policy, program=program,
+                block_rows=block_rows, seg_offset=seg_offset)
+            for full, got in zip(carry, part):
+                cw = c1 - c0
+                for j in range(full.shape[1] // d):
+                    full[:, j * d + c0:j * d + c1] = got[:, j * cw:
+                                                         (j + 1) * cw]
+        return carry
     nb = n // block_rows
     vb = values.reshape(nb, block_rows, w)
     ib = ids.to(torch.int32).reshape(nb, block_rows)

@@ -17,25 +17,69 @@ import torch.nn.functional as F
 NEG = -1e30
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (m, k) @ b (k, n) summed in float32, as float32: two operands of
+    one narrow dtype go to cuBLAS as they are (``out_dtype``); otherwise
+    the narrow one is widened first (exact)."""
+    if a.dtype == b.dtype and a.dtype != torch.float32:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+class _NarrowMatmul(torch.autograd.Function):
+    """x (T, d) @ w (d, f) of one narrow dtype on a CUDA device, summed in
+    float32 and returned as ``out_dtype`` (float32, or x's dtype for
+    ``dense``).  PyTorch has no derivative for ``mm(out_dtype=)``, so the
+    backward is written here with the same float32-summing product: each
+    gradient is one product of the incoming gradient (float32, or narrow
+    when the output was rounded to it: then it holds narrow values
+    exactly) with the other operand, rounded once to the operand's
+    dtype — the reference's ``dot_general`` transpose with
+    ``preferred_element_type=float32``."""
+
+    @staticmethod
+    def forward(ctx, x, w, out_dtype):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32).to(out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = _mm_f32(g, w.t()).to(x.dtype) if ctx.needs_input_grad[0] \
+            else None
+        gw = _mm_f32(x.t(), g).to(w.dtype) if ctx.needs_input_grad[1] \
+            else None
+        return gx, gw, None
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor, out_dtype) -> torch.Tensor:
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return torch.matmul(x, w)
+    if x.is_cuda and x.dtype == w.dtype:
+        x2 = x.reshape(-1, x.shape[-1])
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            y = _NarrowMatmul.apply(x2, w, out_dtype)
+        else:        # serving: no graph, the same product
+            y = torch.mm(x2, w, out_dtype=torch.float32).to(out_dtype)
+        return y.reshape(x.shape[:-1] + (w.shape[1],))
+    return torch.matmul(x.float(), w.float()).to(out_dtype)
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., d) @ w (d, f) summed in float32, as float32.
 
     A bf16 product is exact in float32, so on a CUDA device cuBLAS takes
-    the narrow operands and sums in float32 (``out_dtype``); PyTorch's
-    CPU backend has no such matmul, so there both are widened first.
+    the narrow operands and sums in float32 (``out_dtype``, with the
+    backward of ``_NarrowMatmul``); PyTorch's CPU backend has no such
+    matmul, so there both are widened first.
     """
-    if x.dtype == torch.float32 and w.dtype == torch.float32:
-        return torch.matmul(x, w)
-    if x.is_cuda and x.dtype == w.dtype:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
-        return y.reshape(x.shape[:-1] + (w.shape[1],))
-    return torch.matmul(x.float(), w.float())
+    return _matmul(x, w, torch.float32)
 
 
 def dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """x (..., d) @ w (d, f) with float32 accumulation, rounded once to
     x's dtype."""
-    return matmul_f32(x, w).to(x.dtype)
+    return _matmul(x, w, x.dtype)
 
 
 def rmsnorm(g: torch.Tensor, x: torch.Tensor, eps: float = 1e-5, *,

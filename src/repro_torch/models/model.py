@@ -11,6 +11,10 @@ position ``j``.  The caches keep the reference's layout: one ``KVCache``
 per period position with a leading ``n_periods`` axis, so each layer's
 slice is contiguous.
 
+``loss_fn`` is the training objective (next-token cross-entropy in
+float32, sequence-chunked as the reference does); its gradients come from
+torch autograd, ``remat`` recomputing each block in the backward.
+
 The port runs one architecture family: GQA attention (MHA included) with a
 dense KV cache and SwiGLU/GELU/no MLP.  A configuration that needs more
 raises ``NotImplementedError`` naming what is missing (``unsupported``).
@@ -22,6 +26,7 @@ from typing import List, Optional
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from . import attention as attn
@@ -124,11 +129,12 @@ class LM(nn.Module):
             self.lm_head = _param((cfg.d_model, cfg.padded_vocab), dtype,
                                   device)
 
-    def hidden(self, tokens, *, positions, mode, caches=None, active=None):
+    def hidden(self, tokens, *, positions, mode, caches=None, active=None,
+               remat: bool = False):
         x = embed_lookup(self.embed, tokens)
         x, new_caches, aux = _run_stack(self, x, positions=positions,
                                         mode=mode, caches=caches,
-                                        active=active)
+                                        active=active, remat=remat)
         x = rmsnorm(self.final_norm, x, self.cfg.norm_eps,
                     policy=self.cfg.norm_reduce_policy)
         return x, new_caches, aux
@@ -198,9 +204,13 @@ def _apply_block(bp: Block, x, cfg: ModelConfig, *, positions, mode, cache,
     return x, new_cache
 
 
-def _run_stack(model: LM, x, *, positions, mode, caches, active=None):
+def _run_stack(model: LM, x, *, positions, mode, caches, active=None,
+               remat: bool = False):
     """Every layer in order.  ``caches``: one ``{"core": KVCache}`` per
     period position, leaves with a leading ``n_periods`` axis, or None.
+    ``remat`` (train mode, with autograd recording): each block runs under
+    a non-reentrant ``torch.utils.checkpoint``, keeping only its input
+    and recomputing the rest in the backward.
     Returns (x, new caches in the same layout, aux)."""
     cfg = model.cfg
     pattern = cfg.period
@@ -212,9 +222,13 @@ def _run_stack(model: LM, x, *, positions, mode, caches, active=None):
             if caches is not None:
                 full = caches[j]["core"]
                 c = attn.KVCache(full.k[i], full.v[i], full.length[i])
-            x, nc = model.blocks[i * len(pattern) + j](
-                x, positions=positions, mode=mode, cache=c, active=active,
-                rope=rope)
+            block = model.blocks[i * len(pattern) + j]
+            if remat and mode == "train" and torch.is_grad_enabled():
+                x, nc = checkpoint(block, x, positions=positions, mode=mode,
+                                   rope=rope, use_reentrant=False)
+            else:
+                x, nc = block(x, positions=positions, mode=mode, cache=c,
+                              active=active, rope=rope)
             per_pos[j].append(nc)
     new_caches = []
     for j, ncs in enumerate(per_pos):
@@ -251,13 +265,14 @@ def _lm_head(model: LM) -> torch.Tensor:
 
 
 def forward_hidden(model: LM, *, tokens, positions=None, mode: str = "train",
-                   caches=None, position_offset=0, active=None):
+                   caches=None, position_offset=0, active=None,
+                   remat: bool = False):
     """Backbone only: (final-norm hidden states, caches, aux)."""
     if positions is None:
         positions = _default_positions(tokens.shape[0], tokens.shape[1],
                                        position_offset, tokens.device)
     return model.hidden(tokens, positions=positions, mode=mode,
-                        caches=caches, active=active)
+                        caches=caches, active=active, remat=remat)
 
 
 def forward(model: LM, *, tokens, positions=None, mode: str = "train",
@@ -271,6 +286,74 @@ def forward(model: LM, *, tokens, positions=None, mode: str = "train",
                                        position_offset, tokens.device)
     return model(tokens, positions=positions, mode=mode, caches=caches,
                  active=active)
+
+
+def _chunk_nll(h, head, labels, mask):
+    """One sequence chunk's summed masked negative log-likelihood, float32:
+    the logits (B, c, V) live only inside this call.  The label's logit is
+    gathered: the reference's masked sum over the vocabulary adds it to
+    zeros only, so both give the same value."""
+    lg = matmul_f32(h, head)
+    lse = torch.logsumexp(lg, dim=-1)
+    lab = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    return torch.sum((lse - lab) * mask)
+
+
+def loss_fn(model: LM, batch, *, moe_impl: str = "capacity",
+            remat: bool = False, aux_weight: float = 0.01,
+            logits_pspec=None):
+    """batch: ``tokens`` (B, S) [+ optional ``labels``, ``loss_mask``,
+    ``positions``] -> (loss, metrics {xent, aux, tokens}), as the
+    reference's ``loss_fn``: next-token cross-entropy in float32 plus
+    ``aux_weight * aux`` (0 for a model without experts).
+
+    Without ``labels`` the labels are ``tokens[:, 1:]`` against the
+    hidden states of ``tokens[:, :-1]``.  The head and the cross-entropy
+    run one sequence chunk of ``cfg.loss_chunk`` at a time (the whole
+    sequence when it does not divide it), each chunk under a
+    non-reentrant checkpoint so that only one chunk's (B, c, V) logits
+    live; the chunk sums add in order onto 0 and the token count
+    normalizes once at the end.  ``remat`` recomputes each block in the
+    backward.  ``moe_impl`` is accepted and ignored (a model with experts
+    raises when it is built); ``logits_pspec`` and the embedding inputs
+    of multimodal models raise."""
+    cfg = model.cfg
+    if logits_pspec is not None:
+        raise NotImplementedError(
+            "loss_fn(logits_pspec=): a sharded vocabulary needs a mesh — "
+            "ROADMAP.md queue 1, item 5 (multi-device) brings it")
+    for key in ("embeds", "enc_embeds"):
+        if batch.get(key) is not None:
+            raise NotImplementedError(
+                f"loss_fn: batch[{key!r}] needs embed_inputs / enc-dec, "
+                "which the port's model lacks — ROADMAP.md queue 1, item 4")
+    tokens = batch["tokens"]
+    hidden, _, aux = forward_hidden(model, tokens=tokens,
+                                    positions=batch.get("positions"),
+                                    mode="train", remat=remat)
+    labels = batch.get("labels")
+    if labels is None:
+        labels = tokens[:, 1:]
+        hidden = hidden[:, :-1]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=hidden.device)
+    else:
+        mask = mask.to(torch.float32)[:, :labels.shape[1]]
+    head = _lm_head(model)
+    s = labels.shape[1]
+    chunk = cfg.loss_chunk if s % cfg.loss_chunk == 0 else s
+    nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(0, s, chunk):
+        args = (hidden[:, c:c + chunk], head, labels[:, c:c + chunk],
+                mask[:, c:c + chunk])
+        nll = nll + (checkpoint(_chunk_nll, *args, use_reentrant=False)
+                     if torch.is_grad_enabled() else _chunk_nll(*args))
+    count = mask.sum()
+    xent = nll / torch.clamp(count, min=1.0)
+    loss = xent + aux_weight * aux
+    return loss, {"xent": xent, "aux": aux, "tokens": count}
 
 
 # ---------------------------------------------------------------------------
@@ -328,5 +411,5 @@ def decode_step(model: LM, token, caches, position, *, active=None):
 
 
 __all__ = ["LM", "Block", "SwiGLU", "GeluMLP", "init_params", "forward",
-           "forward_hidden", "decode_step", "init_caches", "pad_caches_to",
+           "forward_hidden", "loss_fn", "decode_step", "init_caches", "pad_caches_to",
            "unsupported", "check_supported", "param_bytes", "cache_bytes"]

@@ -13,7 +13,9 @@ The module itself is callable: ``repro_torch.reduce(values, ...)``.
 """
 
 from .accumulator import (Accumulator, FlashAccumulator,  # noqa: F401
-                          merge_tree, scan_accumulate)
+                          TreeAccumulator, accumulate_microbatch_grads,
+                          merge_tree, reduce_microbatch_grads,
+                          scan_accumulate)
 from .algebra import (REDUCE_OPS, ReduceOp, cascade_poly_coeffs,  # noqa: F401
                       cascade_weights, fir_weights, get_op, poly_weights,
                       register_op)
@@ -47,5 +49,7 @@ __all__ = [
     "Backend", "BACKENDS", "register_backend", "get_backend",
     "select_backend", "select_local_backend", "mask_out_of_range",
     "interop",
-    "Accumulator", "FlashAccumulator", "merge_tree", "scan_accumulate",
+    "Accumulator", "FlashAccumulator", "TreeAccumulator", "merge_tree",
+    "scan_accumulate", "reduce_microbatch_grads",
+    "accumulate_microbatch_grads",
 ]

@@ -234,6 +234,8 @@ def reduce(values, *, segment_ids=None, num_segments: Optional[int] = None,
       on_overflow: "raise" rejects streams beyond the policy's headroom
         bounds; "degrade" chunks them and escalates on saturation.
       device: where to run; None means "cuda" (raises without CUDA).
+        The ``cuda`` backend raises for values that require grad: K1
+        has no backward.
 
     Returns:
       f32 tensor: (num_segments, D) / (num_segments,) when segmented,
@@ -262,6 +264,15 @@ def reduce(values, *, segment_ids=None, num_segments: Optional[int] = None,
     bk = (select_backend(pol, dev) if spec.backend is None
           else get_backend(spec.backend))
     spec = spec if spec.backend == bk.name else spec.replace(backend=bk.name)
+    if bk.name == "cuda" and getattr(values, "requires_grad", False):
+        # K1 is a ctypes launch with no backward: a gradient would stop
+        # here without a word
+        raise NotImplementedError(
+            "repro_torch.reduce: backend 'cuda' (K1) has no backward, and "
+            "these values require grad; reduce a detached tensor, or leave "
+            "the policy knob (e.g. cfg.norm_reduce_policy) unset while "
+            "training — ROADMAP.md queue 1, item 7 (K1 under autograd) "
+            "brings it")
 
     values = torch.as_tensor(values, device=dev)
     if not values.is_floating_point():

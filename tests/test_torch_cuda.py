@@ -428,3 +428,86 @@ def test_cuda_serve_engine_runs_k2_each_step_and_k1_for_the_mean(cuda):
     assert all(np.isfinite(r.mean_logprob) for r in res)
     alone = Engine(cfg, model, max_len=96, device=cuda).generate(reqs[1:2])
     assert alone[0].tokens == res[1].tokens
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_launches_k1_37_times_with_both_knobs(cuda):
+    """A train step on the card (the SMOKE model in bf16: the narrow
+    matmul and its backward): with ``grad_reduce`` and ``norm_policy``
+    set, K1's count rises by 12 (one microbatch mean per reference leaf)
+    + 25 (two per leaf and one across the leaves for the norm) = 37; with
+    both unset by 0; the loss finite either way, and the exact step's
+    grad norm bitwise the blocked executor's on the same gradients."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import init_state, make_train_step
+    cfg = dataclasses.replace(get_smoke_config("stablelm-1.6b"),
+                              dtype="bfloat16")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    model = init_params(cfg, generator=gen, device=cuda)
+    batch = {"tokens": np.random.RandomState(2).randint(
+        0, cfg.vocab, (4, 32)).astype(np.int32)}
+    lr = adamw.cosine_schedule(1e-3, 1, 5)
+    for kw, want in (({}, 0), ({"grad_reduce": "exact",
+                                "norm_policy": "exact"}, 37)):
+        step = make_train_step(cfg, lr_fn=lr, num_microbatches=2,
+                               device=cuda, **kw)
+        state = init_state(model)
+        K.LAUNCHES = 0
+        model, state, met = step(model, state, batch)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES == want, (kw, K.LAUNCHES)
+        assert bool(torch.isfinite(met["loss"])) and \
+            bool(torch.isfinite(met["grad_norm"]))
+    grads = {k: v.to(torch.bfloat16) for k, v in state.mu.items()}
+    assert torch.equal(adamw.global_norm(grads, policy="exact"),
+                       adamw.global_norm(grads, policy="exact",
+                                         backend="blocked"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", ("float32", "bfloat16"))
+def test_cuda_narrow_matmul_backward_within_bf16_ulps_of_widened(out_dtype,
+                                                                 cuda):
+    """``layers._NarrowMatmul``'s hand-written backward (bf16 x and w on
+    the card; the output float32 as ``matmul_f32`` gives it, or rounded
+    to bf16 as ``dense`` does) against autograd through the same product
+    on float32 copies of the operands: gx and gw, both bf16, within two
+    bf16 ulps of the widened result plus the worst-case float32
+    reordering error of a k-term sum, 2 k 2^-24 sum|terms| (k the summed
+    dimension: the two paths may sum in different orders)."""
+    from repro_torch.models import layers
+    rng = np.random.RandomState(5)
+    t, d, f = 96, 512, 384
+    dt = getattr(torch, out_dtype)
+    x0 = torch.tensor(rng.randn(t, d).astype(np.float32),
+                      device=cuda).to(torch.bfloat16)
+    w0 = torch.tensor((rng.randn(d, f) * 0.05).astype(np.float32),
+                      device=cuda).to(torch.bfloat16)
+    g = torch.tensor(rng.randn(t, f).astype(np.float32), device=cuda).to(dt)
+    x, w = x0.clone().requires_grad_(True), w0.clone().requires_grad_(True)
+    y = layers.matmul_f32(x, w) if dt == torch.float32 \
+        else layers.dense(w, x)
+    seen, todo = set(), [y.grad_fn]
+    while todo:                          # the nodes of y's graph
+        fn = todo.pop()
+        seen.add(type(fn).__name__)
+        todo += [n for n, _ in fn.next_functions if n is not None]
+    assert y.dtype == dt and "_NarrowMatmulBackward" in seen, seen
+    gx, gw = torch.autograd.grad(y, (x, w), g)
+    xr, wr = x0.clone().requires_grad_(True), w0.clone().requires_grad_(True)
+    rx, rw = torch.autograd.grad(torch.mm(xr.float(), wr.float()).to(dt),
+                                 (xr, wr), g)
+    assert gx.dtype == gw.dtype == rx.dtype == rw.dtype == torch.bfloat16
+    ga = g.float().abs()
+    for got, want, terms, k in ((gx, rx, ga @ w0.float().abs().t(), f),
+                                (gw, rw, x0.float().abs().t() @ ga, t)):
+        want = want.float()
+        ulp = torch.ldexp(torch.ones_like(want),
+                          torch.frexp(want).exponent - 8)
+        bound = 2 * ulp + 2 * k * 2.0 ** -24 * terms
+        err = (got.float() - want).abs()
+        assert bool((err <= bound).all()), float((err - bound).max())
