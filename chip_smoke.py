@@ -85,9 +85,13 @@ failure exits nonzero:
    ``procrastinate`` at 2 layers (full width otherwise), every K1 launch
    of a step also bitwise its plain version; (4) a step with
    ``grad_reduce`` and ``norm_policy`` set launches K1 exactly 37 times
-   (counts set to 0 just before, read just after); timings: ms per
-   juggler and exact step, tokens/s, peak memory, and K1's and the
-   domain preparation's ms inside an exact step.
+   (counts set to 0 just before, read just after); (5) ``fast`` and
+   ``compensated`` through K1's one-label schedule on the largest leaf's
+   ``grad_reduce`` stream (4 x 276,824,064, B = 1) and ``global_norm``
+   stream (270,336 x 1,024, B = 512), bitwise their plain versions and
+   timed beside ``torch.sum(0)`` in f32; timings: ms per juggler and
+   exact step, tokens/s, peak memory, and K1's and the domain
+   preparation's ms inside an exact step.
 
 Times are CUDA-event medians after a warm-up (plain versions: one
 host-clock run; K1 on the train path: the sum over a step's launches,
@@ -1247,6 +1251,63 @@ def check_grad_reductions(gs, tier, what):
     return cuda
 
 
+def check_one_label_float(gs, means, smi):
+    """Check 5: ``fast`` and ``compensated`` through K1's one-label
+    schedule on the largest leaf's ``grad_reduce`` stream (its microbatch
+    gradients, (4, |leaf|) at B = 1) and its ``global_norm`` stream (the
+    squares of its mean gradient, (|leaf| / 1,024, 1,024) at B = 512),
+    each bitwise its plain version, timed beside ``torch.sum(0)`` in f32
+    on the same stream and the bound."""
+    import torch
+    from repro_torch.kernels import jugglepac_segsum as K
+    from repro_torch.reduce import get_policy
+    from repro_torch.reduce.algebra import get_op
+    big = max(means, key=lambda k: means[k].numel())
+    n = means[big].numel()
+    dev = means[big].device
+    stream = torch.empty((len(gs), n), dtype=torch.float32, device=dev)
+    for i, g in enumerate(gs):
+        stream[i].copy_(g[big].reshape(-1))
+    w = 1024
+    xf = means[big].to(torch.float32).reshape(-1)
+    xf = torch.cat([xf, xf.new_zeros((-n) % w)])
+    sq = get_op("sumsq").pre(xf.reshape(-1, w))
+    del xf
+    for what, vals, block in (("grad_reduce", stream, 1),
+                              ("global_norm", sq, 512)):
+        rows = vals.shape[0]
+        ids = torch.zeros(rows, dtype=torch.int32, device=dev)
+        pad = (-rows) % block
+        pv = torch.cat([vals, vals.new_zeros((pad, vals.shape[1]))]) \
+            if pad else vals
+        pi = torch.cat([ids, ids.new_full((pad,), -1)]) if pad else ids
+        for tier in ("fast", "compensated"):
+            pol = get_policy(tier)
+            kern = K.segsum_policy_cuda(vals, ids, 1, policy=pol,
+                                        block_rows=block)
+            plain = K.segsum_policy_torch(pv, pi, 1, policy=pol,
+                                          block_rows=block)
+            ok, _ = same(tuple(kern), tuple(plain))
+            del plain
+            ms = cuda_ms(lambda: K.segsum_policy_cuda(
+                vals, ids, 1, policy=pol, block_rows=block), REPS)
+            lib_ms = cuda_ms(lambda: vals.sum(0), REPS)
+            out = sum(c.numel() * 4 for c in kern)
+            bound = (rows * 4 + vals.numel() * 4 + out) / HBM_BYTES_PER_S
+            plan = K.wide_plan(pol, vals.shape[1], rows, block)
+            print(f"check one-label {tier} {what} stream of {big} "
+                  f"{tuple(vals.shape)} B={block}: K1 "
+                  f"{'bitwise' if ok else 'DIFFERS from'} its plain version"
+                  f"; K1 {ms:.3f} ms ({plan.kernels} CUDA kernel(s)), "
+                  f"torch.sum(0) f32 {lib_ms:.3f} ms, bound "
+                  f"{bound * 1e3:.3f} ms | {smi}", flush=True)
+            check(ok, f"train: K1 {tier} on the one-label {what} stream "
+                      "differs from its plain version")
+        del pv, pi
+    del stream, sq
+    torch.cuda.empty_cache()
+
+
 def train_phase(seed, dev, smi):
     """Phase 11: the training path at stablelm-1.6b's full width through
     the port's train step; returns K1's train-path kernel entries."""
@@ -1377,8 +1438,10 @@ def train_phase(seed, dev, smi):
     torch.cuda.empty_cache()
     check_juggler(gs)
     # 3. K1 against blocked at full width (exact)
-    check_grad_reductions(gs, "exact", "full width")
-    del gs
+    means = check_grad_reductions(gs, "exact", "full width")
+    # 5. fast and compensated through the one-label schedule
+    check_one_label_float(gs, means, smi)
+    del gs, means
     torch.cuda.empty_cache()
 
     # exact2 and procrastinate at n_layers=2

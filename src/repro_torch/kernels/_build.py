@@ -49,6 +49,8 @@ _SIGNATURES = {
         "segsum_policy_launch": [_C, _P, _P, _P, _P, _P, _P, _P, _L,
                                  _C, _C, _C, _C, _C, _C, _C, _C, _P],
         "block_ranges_launch": [_P, _P, _L, _C, _C, _C, _P],
+        "segsum_wide_launch": [_C, _P, _P, _P, _P, _P, _P, _P, _L, _C, _C,
+                               _C, _C, _C, _P],
     },
     "flash_decode": {
         "flash_decode_launch": [_C, _P, _P, _P, _P, _P, _P, _P, _P, _P,

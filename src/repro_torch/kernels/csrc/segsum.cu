@@ -87,6 +87,39 @@
 // and every chunk pushes the literal +0.f: the binary-counter stack and
 // the lane fold add +0 to +0 only, so `float_block` returns +0.f and the
 // carry folds +0.f exactly as for a block the range test skipped.
+//
+// The one-label schedule (`segsum_wide_launch`, num_segments == 1: every
+// unsegmented reduce, and every K1 launch of a train step).  The label
+// schedule above collapses there: one label a tile, 16 columns and 32
+// threads a CUDA block, a pre-pass that is not needed.  With one label
+// every row is the label's or a +0 leaf (0 for the integer tiers), so no
+// label tile, no descent into MIXED nodes and no range pre-pass is
+// needed, and the work splits in two phases:
+//   1. the ordered fold, column-wide (`wide_fold_kernel`): a thread owns
+//      VEC = 4 consecutive raw columns of every plane (one 16-byte load a
+//      row a plane, where d and the base are aligned; VEC = 1 otherwise),
+//      a CUDA block of 256 threads 1,024 columns, and walks the schedule
+//      blocks' contributions in block order, the loads of several blocks
+//      issued before it folds any, with `Policy.update` as above; a float
+//      tier folds every block, +0 included.  At B == 1 a block's
+//      contribution is its row (the value where the label is the launch's,
+//      0 or +0 elsewhere), so the launch is this one kernel reading the
+//      stream once.
+//   2. where B > 1, block contributions in parallel, just before phase 1
+//      (`wide_contrib_kernel`): one CUDA block per (schedule block, 32 VEC
+//      columns of the flat P * d row), 8 warps sharing the block's rows,
+//      into an (nb, P * d) tensor the caller allocates.  Integer tiers:
+//      each warp sums runs of 16 rows, then the warps' sums add, an int32
+//      wrapping sum, which any split of the rows gives to the bit.  Float
+//      tiers: per lane, chunks of up to TREE_ROWS padded rows; each warp
+//      takes groups of 16 consecutive rows (aligned subtrees), sums them
+//      level by level in registers, and the levels above the groups sum
+//      in shared memory, left child first: the pinned pairwise tree, node
+//      for node.  Chunks join on the binary-counter stack and lanes fold
+//      in lane order, as in `float_block`.
+// So the bits are the plain version's: each block's contribution is the
+// same tree (float) or the same wrapping sum (integer), and phase 1 is the
+// same left fold per carry cell.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -738,6 +771,407 @@ int launch_tier(const Args& a, cudaStream_t stream) {
   return launch<TIER, 1>(a, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The one-label schedule (num_segments == 1)
+// ---------------------------------------------------------------------------
+
+struct WideArgs {
+  const void* values;   // (n_rows, PARTS * d), row-major
+  const int* ids;       // (n_rows,) labels, absolute
+  void* contrib;        // (nb, PARTS * d) block contributions (B > 1)
+  void* out0; void* out1; void* out2; void* out3;
+  long long n_rows;
+  int block_rows;       // B
+  int label;            // the one label: seg_offset
+  int d;                // raw width: the carry's column count
+  int lanes;            // float lane count (1 = dot form)
+};
+
+// A contribution-kernel CUDA block: WIDE_WARPS warps, each warp 32 pieces
+// of VEC columns side by side; a fold-kernel CUDA block: WIDE_THREADS
+// threads of VEC columns each.
+constexpr int WIDE_THREADS = 256;
+constexpr int WIDE_WARPS = WIDE_THREADS / 32;
+// A fold-kernel CUDA block where it reads the block contributions: few
+// columns (a norm's 1,024) and a chain of nb / DEPTH load latencies, so
+// small CUDA blocks spread the columns over more SMs.
+constexpr int FOLD_THREADS = 64;
+// Blocks whose contributions a fold thread loads before it folds any: a
+// few rows of the stream (B == 1, VEC columns a thread, many threads), or
+// many block contributions (B > 1, one column a thread, few threads: the
+// fold is a chain of nb / DEPTH load latencies).
+template <int P, bool RAW> struct FoldDepth {
+  static constexpr int value = RAW ? (P == 1 ? 8 : 2) : (P == 1 ? 64 : 8);
+};
+
+template <int VEC, typename T>
+__device__ __forceinline__ void store_vec(T* p, const T (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    using V4 = typename std::conditional<std::is_same<T, float>::value,
+                                         float4, int4>::type;
+    V4 q;
+    q.x = v[0]; q.y = v[1]; q.z = v[2]; q.w = v[3];
+    *reinterpret_cast<V4*>(p) = q;
+  } else {
+    p[0] = v[0];
+  }
+}
+
+// A loaded element as the contribution the carry folds: an integer tier
+// reading exact2's f32 domain rounds it to int32 (`as_int`); everything
+// else is already of the carry's type.
+template <int TIER, typename Src>
+__device__ __forceinline__ auto wide_value(Src x) {
+  if constexpr (Tier<TIER>::INT && std::is_same<Src, float>::value) {
+    return __float2int_rn(x);
+  } else {
+    return x;
+  }
+}
+
+// One level of a group's register tree, VEC columns at once: M sums of
+// pairs, left first.
+template <int M, int VEC>
+__device__ __forceinline__ void pair_up_vec(float (&v)[GROUP_ROWS][VEC]) {
+#pragma unroll
+  for (int u = 0; u < M; ++u)
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) v[u][k] = v[2 * u][k] + v[2 * u + 1][k];
+}
+
+// `push_leaf` and `close_tree` for VEC columns that share one count.
+template <int VEC>
+__device__ __forceinline__ void push_leaf_vec(float (&v)[VEC],
+                                              float (*stk)[VEC], int& sp,
+                                              unsigned& cnt) {
+  unsigned c = ++cnt;
+  while ((c & 1u) == 0u) {
+    --sp;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) v[k] = stk[sp][k] + v[k];
+    c >>= 1;
+  }
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) stk[sp][k] = v[k];
+  ++sp;
+}
+
+template <int VEC>
+__device__ __forceinline__ void close_tree_vec(float (*stk)[VEC], int& sp,
+                                               unsigned& cnt,
+                                               float (&out)[VEC]) {
+  unsigned p2 = 1u;
+  while (p2 < cnt) p2 <<= 1;
+  while (cnt < p2) {
+    float z[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) z[k] = 0.f;
+    push_leaf_vec<VEC>(z, stk, sp, cnt);
+  }
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) out[k] = stk[0][k];
+}
+
+// Phase 2 (B > 1): one schedule block's contribution to 32 * VEC columns
+// of the flat (PARTS * d)-wide row, into contrib[blk].  Grid: one CUDA
+// block per (schedule block, column tile), flat, schedule-block major.
+// Rows past N and rows of another label are +0 leaves (0 for the integer
+// tiers).
+template <int TIER, int VEC>
+__global__ void __launch_bounds__(WIDE_THREADS)
+wide_contrib_kernel(WideArgs a) {
+  using T = Tier<TIER>;
+  using In = typename T::In;
+  constexpr int CT = 32 * VEC;
+  extern __shared__ int wsm[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long W = static_cast<long long>(T::PARTS) * a.d;
+  const long long n = a.n_rows;
+  const int B = a.block_rows;
+  const long long tiles = (W + CT - 1) / CT;
+  const long long blk = blockIdx.x / tiles;
+  const long long c = (blockIdx.x - blk * tiles) * CT + lane * VEC;
+  const bool col_ok = c < W;               // all VEC columns, or none
+  const long long r0 = blk * B;
+  const In* vals = static_cast<const In*>(a.values);
+  // a label that is not the launch's, for the rows that load none
+  const int none = static_cast<int>(static_cast<unsigned>(a.label) - 1u);
+  if constexpr (T::INT) {
+    // any split of the rows gives the int32 wrapping sum: warp w takes
+    // the runs of GROUP_ROWS rows w, w + WIDE_WARPS, ...
+    int acc[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) acc[k] = 0;
+    for (int j0 = warp * GROUP_ROWS; j0 < B; j0 += WIDE_WARPS * GROUP_ROWS) {
+      int lab[GROUP_ROWS];
+      In v[GROUP_ROWS][VEC];
+#pragma unroll
+      for (int u = 0; u < GROUP_ROWS; ++u) {    // every load before any use
+        const long long g = r0 + j0 + u;
+        lab[u] = none;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) v[u][k] = In(0);
+        if (j0 + u < B && g < n) {
+          lab[u] = a.ids[g];
+          if (col_ok) load_vec<VEC>(vals + g * W + c, v[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < GROUP_ROWS; ++u)
+        if (lab[u] == a.label)
+#pragma unroll
+          for (int k = 0; k < VEC; ++k)
+            acc[k] = wadd(acc[k], wide_value<TIER>(v[u][k]));
+    }
+    int* part = wsm;                       // [WIDE_WARPS][CT]
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) part[warp * CT + lane * VEC + k] = acc[k];
+    __syncthreads();
+    if (warp == 0 && col_ok) {
+      for (int w = 1; w < WIDE_WARPS; ++w)
+#pragma unroll
+        for (int k = 0; k < VEC; ++k)
+          acc[k] = wadd(acc[k], part[w * CT + lane * VEC + k]);
+      store_vec<VEC>(static_cast<int*>(a.contrib) + blk * W + c, acc);
+    }
+  } else {
+    // the pinned tree: per lane, chunks of up to TREE_ROWS padded rows
+    // (aligned subtrees); a chunk's groups of GROUP_ROWS rows sum in
+    // registers, the groups' level above in shared memory, in place
+    // (node i of level h at (i << h)); chunk sums join on the
+    // binary-counter stack, lanes fold in lane order
+    float* tree = reinterpret_cast<float*>(wsm);   // [groups][CT]
+    float stk[33][VEC];                    // chunk sums (warp 0)
+    float total[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) total[k] = 0.f;
+    for (int ln = 0; ln < a.lanes; ++ln) {
+      const int lo = static_cast<int>((static_cast<long long>(ln) * B) /
+                                      a.lanes);
+      const int len = static_cast<int>(
+          (static_cast<long long>(ln + 1) * B) / a.lanes) - lo;
+      int L = 1;
+      while (L < len) L <<= 1;
+      const int C = min(L, TREE_ROWS);
+      const int log_c = 31 - __clz(C);
+      const int G = min(C, GROUP_ROWS), log_g = min(log_c, GROUP_LOG);
+      const int groups = C / G;
+      int sp = 0;
+      unsigned cnt = 0u;
+      for (int c0 = 0; c0 < len; c0 += C) {
+        for (int grp = warp; grp < groups; grp += WIDE_WARPS) {
+          const int j0 = c0 + grp * G;
+          float v[GROUP_ROWS][VEC];
+          int lab[GROUP_ROWS];
+#pragma unroll
+          for (int u = 0; u < GROUP_ROWS; ++u) {  // every load before any use
+            const long long g = r0 + lo + j0 + u;
+            lab[u] = none;
+#pragma unroll
+            for (int k = 0; k < VEC; ++k) v[u][k] = 0.f;
+            if (u < G && j0 + u < len && g < n) {
+              lab[u] = a.ids[g];
+              if (col_ok) load_vec<VEC>(vals + g * W + c, v[u]);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < GROUP_ROWS; ++u)
+            if (lab[u] != a.label)
+#pragma unroll
+              for (int k = 0; k < VEC; ++k) v[u][k] = 0.f;
+          if (log_g >= 1) pair_up_vec<8, VEC>(v);
+          if (log_g >= 2) pair_up_vec<4, VEC>(v);
+          if (log_g >= 3) pair_up_vec<2, VEC>(v);
+          if (log_g >= 4) pair_up_vec<1, VEC>(v);
+#pragma unroll
+          for (int k = 0; k < VEC; ++k)
+            tree[grp * CT + lane * VEC + k] = v[0][k];
+        }
+        __syncthreads();
+        for (int h = 1; (groups >> h) > 0; ++h) {
+          const int half = 1 << (h - 1);
+          for (int i = warp; i < (groups >> h); i += WIDE_WARPS) {
+            float* x = tree + (i << h) * CT + lane * VEC;
+#pragma unroll
+            for (int k = 0; k < VEC; ++k) x[k] = x[k] + x[half * CT + k];
+          }
+          __syncthreads();
+        }
+        if (warp == 0) {
+          float root[VEC];
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) root[k] = tree[lane * VEC + k];
+          push_leaf_vec<VEC>(root, stk, sp, cnt);
+        }
+        __syncthreads();
+      }
+      if (warp == 0) {
+        float part[VEC];
+        close_tree_vec<VEC>(stk, sp, cnt, part);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k)
+          total[k] = ln == 0 ? part[k] : total[k] + part[k];
+      }
+    }
+    if (warp == 0 && col_ok)
+      store_vec<VEC>(static_cast<float*>(a.contrib) + blk * W + c, total);
+  }
+}
+
+// Phase 1: the ordered fold.  Thread t owns raw columns [VEC t, VEC t +
+// VEC) of every plane and folds each schedule block's contribution into
+// its carry cells in block order, with the loads of FoldDepth blocks
+// issued before any fold.  RAW (B == 1): a block's contribution is its
+// row, read from the stream, the value where the row's label is the
+// launch's and 0 (+0) elsewhere; otherwise it is contrib[blk], read one
+// column a thread (VEC == 1).
+template <int TIER, int VEC, bool RAW>
+__global__ void __launch_bounds__(WIDE_THREADS)
+wide_fold_kernel(WideArgs a) {
+  using T = Tier<TIER>;
+  constexpr int P = T::PARTS;
+  constexpr bool INT = T::INT;
+  constexpr int DEPTH = FoldDepth<P, RAW>::value;
+  using Acc = typename std::conditional<INT, int, float>::type;
+  using Src = typename std::conditional<RAW, typename T::In, Acc>::type;
+  const long long d = a.d, W = static_cast<long long>(P) * d;
+  const long long col =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * VEC;
+  if (col >= d) return;
+  const long long nb = RAW ? a.n_rows
+                           : (a.n_rows + a.block_rows - 1) / a.block_rows;
+  const Src* src = static_cast<const Src*>(RAW ? a.values : a.contrib);
+
+  float facc[VEC], fcomp[VEC];
+  int iacc[VEC], hi[VEC], lo[VEC], ovf[VEC];
+  int bins[P][VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    facc[k] = fcomp[k] = 0.f;
+    iacc[k] = hi[k] = lo[k] = ovf[k] = 0;
+#pragma unroll
+    for (int p = 0; p < P; ++p) bins[p][k] = 0;
+  }
+
+  for (long long b0 = 0; b0 < nb; b0 += DEPTH) {
+    Src v[DEPTH][P][VEC];
+    bool mine[DEPTH];
+#pragma unroll
+    for (int u = 0; u < DEPTH; ++u) {        // every load before any fold
+      const long long b = b0 + u;
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) v[u][p][k] = Src(0);
+      mine[u] = b < nb;
+      if (b < nb) {
+        if (RAW) mine[u] = a.ids[b] == a.label;
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          load_vec<VEC>(src + b * W + p * d + col, v[u][p]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < DEPTH; ++u) {
+      if (b0 + u >= nb) break;
+      Acc ctr[P][VEC];
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int k = 0; k < VEC; ++k)
+          ctr[p][k] = mine[u] ? static_cast<Acc>(wide_value<TIER>(v[u][p][k]))
+                              : Acc(0);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        if constexpr (TIER == FAST) {
+          facc[k] = facc[k] + ctr[0][k];
+        } else if constexpr (TIER == COMPENSATED) {
+          two_sum_update(facc[k], fcomp[k], ctr[0][k]);
+        } else if constexpr (TIER == EXACT) {
+          iacc[k] = wadd(iacc[k], ctr[0][k]);
+        } else if constexpr (TIER == EXACT2) {
+          int wb = 0;
+          hi[k] = wrap_add(hi[k], ctr[0][k] >> 15, wb);
+          lo[k] = wrap_add(lo[k], ctr[0][k] & 0x7fff, wb);
+#pragma unroll
+          for (int p = 1; p < P; ++p)
+            bins[p][k] = wrap_add(bins[p][k], ctr[p][k], wb);
+          ovf[k] = wadd(ovf[k], wb);
+        } else {
+          int wb = 0;
+#pragma unroll
+          for (int p = 0; p < P; ++p)
+            bins[p][k] = wrap_add(bins[p][k], ctr[p][k], wb);
+          ovf[k] = wadd(ovf[k], wb);
+        }
+      }
+    }
+  }
+
+  // the carry, written once (one label: row 0 of each carry array)
+  if constexpr (TIER == FAST) {
+    store_vec<VEC>(static_cast<float*>(a.out0) + col, facc);
+  } else if constexpr (TIER == COMPENSATED) {
+    store_vec<VEC>(static_cast<float*>(a.out0) + col, facc);
+    store_vec<VEC>(static_cast<float*>(a.out1) + col, fcomp);
+  } else if constexpr (TIER == EXACT) {
+    store_vec<VEC>(static_cast<int*>(a.out0) + col, iacc);
+  } else if constexpr (TIER == EXACT2) {
+    store_vec<VEC>(static_cast<int*>(a.out0) + col, hi);
+    store_vec<VEC>(static_cast<int*>(a.out1) + col, lo);
+#pragma unroll
+    for (int p = 1; p < P; ++p)
+      store_vec<VEC>(static_cast<int*>(a.out2) + (p - 1) * d + col, bins[p]);
+    store_vec<VEC>(static_cast<int*>(a.out3) + col, ovf);
+  } else {
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      store_vec<VEC>(static_cast<int*>(a.out0) + p * d + col, bins[p]);
+    store_vec<VEC>(static_cast<int*>(a.out1) + col, ovf);
+  }
+}
+
+// Bytes of dynamic shared memory of a contribution-kernel CUDA block;
+// ops.py's `wide_smem_bytes` mirrors it: a chunk's group sums (float
+// tiers) or the warps' partial sums (integer tiers), 32 * vec columns.
+size_t wide_smem_bytes(bool float_tree, int vec) {
+  const size_t rows = float_tree ? TREE_ROWS / GROUP_ROWS : WIDE_WARPS;
+  return rows * 32 * static_cast<size_t>(vec) * 4;
+}
+
+template <int TIER, int VEC>
+int wide_launch_vec(const WideArgs& a, cudaStream_t stream) {
+  const long long d = a.d;
+  if (a.block_rows == 1) {
+    const unsigned fold_grid = static_cast<unsigned>(
+        (d + WIDE_THREADS * VEC - 1) / (WIDE_THREADS * VEC));
+    wide_fold_kernel<TIER, VEC, true><<<fold_grid, WIDE_THREADS, 0,
+                                        stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const long long W = static_cast<long long>(Tier<TIER>::PARTS) * d;
+  const long long nb = (a.n_rows + a.block_rows - 1) / a.block_rows;
+  const long long tiles = (W + 32 * VEC - 1) / (32 * VEC);
+  if (nb * tiles > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = wide_smem_bytes(!Tier<TIER>::INT, VEC);
+  wide_contrib_kernel<TIER, VEC><<<static_cast<unsigned>(nb * tiles),
+                                   WIDE_THREADS, smem, stream>>>(a);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned fold_grid =
+      static_cast<unsigned>((d + FOLD_THREADS - 1) / FOLD_THREADS);
+  wide_fold_kernel<TIER, 1, false><<<fold_grid, FOLD_THREADS, 0,
+                                     stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int TIER>
+int wide_launch_tier(const WideArgs& a, int vec, cudaStream_t stream) {
+  return vec == 4 ? wide_launch_vec<TIER, 4>(a, stream)
+                  : wide_launch_vec<TIER, 1>(a, stream);
+}
+
 }  // namespace
 
 // The pre-pass alone: each schedule block's label range into `ranges`
@@ -776,5 +1210,36 @@ extern "C" int segsum_policy_launch(
     case EXACT: return launch_tier<EXACT>(a, s);
     case EXACT2: return launch_tier<EXACT2>(a, s);
     default: return launch_tier<PROCRASTINATE>(a, s);
+  }
+}
+
+// K1 at one label: the label schedule's pre-pass and label tiles give way
+// to the ordered fold, column-wide (`wide_fold_kernel`), which at B == 1
+// reads the stream itself (one CUDA kernel) and otherwise reads the block
+// contributions that `wide_contrib_kernel` writes into `contrib` ((nb,
+// PARTS * d), of the carry's type) just before it, on the same stream.
+// vec is 4 (16-byte loads: d a multiple of 4, values and contrib on 16
+// bytes) or 1.  Returns cudaGetLastError() after the launches, or
+// cudaErrorInvalidValue for arguments the schedule does not take.
+extern "C" int segsum_wide_launch(
+    int tier, const void* values, const void* ids, void* contrib,
+    void* out0, void* out1, void* out2, void* out3, long long n_rows,
+    int block_rows, int seg_offset, int d, int lanes, int vec,
+    void* stream) {
+  WideArgs a{values, static_cast<const int*>(ids), contrib, out0, out1,
+             out2, out3, n_rows, block_rows, seg_offset, d, lanes};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tier < FAST || tier > PROCRASTINATE || block_rows < 1 || lanes < 1 ||
+      (vec != 1 && vec != 4) || (block_rows > 1 && contrib == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec == 4 && (d % 4 != 0 || reinterpret_cast<uintptr_t>(values) % 16 ||
+                   reinterpret_cast<uintptr_t>(contrib) % 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (tier) {
+    case FAST: return wide_launch_tier<FAST>(a, vec, s);
+    case COMPENSATED: return wide_launch_tier<COMPENSATED>(a, vec, s);
+    case EXACT: return wide_launch_tier<EXACT>(a, vec, s);
+    case EXACT2: return wide_launch_tier<EXACT2>(a, vec, s);
+    default: return wide_launch_tier<PROCRASTINATE>(a, vec, s);
   }
 }

@@ -16,11 +16,29 @@ Two implementations of one function live here:
     (``program.block_contrib``) and fold (``Policy.update``) the ``ref``
     executor runs block by block.
 
-K1 launches two CUDA kernels on one stream: a pre-pass that writes each
-schedule block's label range, which ``block_label_ranges_torch`` computes
-plainly (``block_label_ranges_cuda`` launches the pre-pass alone, for
-checks), and the block schedule, which loads only the schedule blocks
-whose range meets its label tile.
+K1 has two schedules, chosen by shape alone (``launch_plan``):
+
+  * the label schedule, for more than one label: two CUDA kernels on one
+    stream, a pre-pass that writes each schedule block's label range,
+    which ``block_label_ranges_torch`` computes plainly
+    (``block_label_ranges_cuda`` launches the pre-pass alone, for
+    checks), and the block schedule, which loads only the schedule blocks
+    whose range meets its label tile;
+  * the one-label schedule (``wide_plan``), for ``num_segments == 1``:
+    every unsegmented reduce and every K1 launch of a train step.  Its
+    fold is column-wide: a thread owns ``ops.WIDE_VEC`` columns of every
+    plane (one where it reads block contributions) and folds the
+    schedule blocks' contributions into their carry cells in block
+    order.  At ``block_rows == 1`` a block's contribution
+    is its row, so the fold reads the stream itself: one CUDA kernel.
+    Otherwise a contribution kernel runs first: one CUDA block per
+    (schedule block, column tile) sums the block's rows — the pinned
+    tree of the float tiers, as 16-row register subtrees joined level by
+    level in shared memory; an int32 wrapping sum for the integer tiers
+    — into an (nb, W) tensor the launcher allocates, which the fold
+    reads.  Each contribution is the plain version's gather to the bit
+    (the same tree, or a wrapping sum that any split of the rows gives),
+    and the fold is ``Policy.update`` in block order, so the carry is too.
 
 The backend registry (``repro_torch.reduce.backends``) picks between
 them by device.  The kernel never falls back: a failed build or launch
@@ -38,6 +56,9 @@ kernel and its plain version agree to the bit for every tier.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -59,6 +80,15 @@ _CONTRIB_ELEMS = 1 << 24
 
 #: the range of a schedule block with none of the labels
 NO_RANGE = (2 ** 31 - 1, -2 ** 31)
+
+
+@functools.lru_cache(maxsize=256)
+def _carry_spec(policy, num_segments: int, width: int):
+    """The carry's (shape, dtype) per part, from the policy's init (the
+    one source of them), cached: a launch's host time counts whenever
+    the card waits for it."""
+    return tuple((tuple(c.shape), c.dtype)
+                 for c in policy.init(num_segments, width, device="meta"))
 
 
 def block_label_ranges_torch(ids: torch.Tensor, block_rows: int,
@@ -167,12 +197,61 @@ def launch_shape(policy, num_segments: int, width: int):
     return ct, st, grid
 
 
+class WidePlan(NamedTuple):
+    """The CUDA kernels of one K1 launch under the one-label schedule."""
+
+    #: raw columns a thread owns (4: 16-byte loads; 1)
+    vec: int
+    #: (schedule blocks, column tiles) of the contribution kernel, one
+    #: CUDA block each; None where ``block_rows == 1``
+    contrib_grid: Optional[Tuple[int, int]]
+    #: the (nb, W) block contributions it writes, or None
+    contrib_shape: Optional[Tuple[int, int]]
+    #: CUDA blocks of the ordered fold (one column a thread where it
+    #: reads the contributions)
+    fold_grid: int
+    #: dynamic shared memory of a contribution-kernel CUDA block
+    smem: int
+
+    @property
+    def kernels(self) -> int:
+        return 1 if self.contrib_grid is None else 2
+
+
+def wide_plan(policy, width: int, n_rows: int, block_rows: int, *,
+              aligned: bool = True) -> WidePlan:
+    """The one-label schedule of an (n_rows, width) domain stream:
+    ``ops.WIDE_VEC`` columns a thread where the raw width d is a multiple
+    of it and the stream's base is ``aligned`` on 16 bytes, else one.
+    Mirrors ``wide_launch_vec`` in ``csrc/segsum.cu``."""
+    d = width // policy.parts
+    vec = ops.WIDE_VEC if aligned and d % ops.WIDE_VEC == 0 else 1
+    if block_rows == 1:
+        return WidePlan(vec, None, None, -(-d // (ops.WIDE_THREADS * vec)),
+                        0)
+    nb = -(-n_rows // block_rows)
+    tiles = -(-width // (32 * vec))
+    return WidePlan(vec, (nb, tiles), (nb, width), -(-d // ops.FOLD_THREADS),
+                    ops.wide_smem_bytes(policy.integer, vec))
+
+
+def launch_plan(policy, num_segments: int, width: int, n_rows: int,
+                block_rows: int, *, aligned: bool = True):
+    """K1's schedule for a launch, by shape alone: ``wide_plan`` for one
+    label, else the label schedule's ``launch_shape``."""
+    if num_segments == 1:
+        return wide_plan(policy, width, n_rows, block_rows, aligned=aligned)
+    return launch_shape(policy, num_segments, width)
+
+
 def segsum_policy_cuda(values: torch.Tensor, ids: torch.Tensor,
                        num_segments: int, *, policy, program=None,
                        block_rows: int = 512, seg_offset: int = 0):
     """Launch K1: values (N, W) in the policy's domain, ids (N,) int32,
     both contiguous CUDA tensors -> the carry tuple.  Any N: the rows
-    past N of the last block read as sentinel rows."""
+    past N of the last block read as sentinel rows.  ``launch_plan``
+    picks the schedule from the shape; either way one call is one count
+    in ``LAUNCHES``."""
     global LAUNCHES
     from . import _build
     name = policy.name
@@ -194,24 +273,41 @@ def segsum_policy_cuda(values: torch.Tensor, ids: torch.Tensor,
     if w % policy.parts:
         raise ValueError(f"{name}: width {w} is not a multiple of its "
                          f"{policy.parts} domain planes")
-    # the policy's init is the one source of the carry shapes and dtypes
-    carry = tuple(torch.empty(c.shape, dtype=c.dtype, device=values.device)
-                  for c in policy.init(num_segments, w, device="meta"))
+    carry = tuple(torch.empty(shape, dtype=dtype, device=values.device)
+                  for shape, dtype in _carry_spec(policy, num_segments, w))
     if n == 0 or num_segments == 0 or w == 0:
         return tuple(c.zero_() for c in carry)
     lanes_form = program is not None and program.contrib == "lanes"
     nl = len(lane_bounds(block_rows, program.lanes if lanes_form else 1)) - 1
-    ct, st, _ = launch_shape(policy, num_segments, w)
+    lib = _build.load("segsum")
+    # the raw handle of PyTorch's current stream: a Stream object costs
+    # microseconds of host time, which a short launch pays in full
+    stream = torch._C._cuda_getCurrentRawStream(values.device.index)
+    plan = launch_plan(policy, num_segments, w, n, block_rows,
+                       aligned=values.data_ptr() % 16 == 0)
+    ptrs = [c.data_ptr() for c in carry] + [None] * (4 - len(carry))
+    if isinstance(plan, WidePlan):
+        contrib = None
+        if plan.contrib_shape is not None:
+            contrib = torch.empty(plan.contrib_shape, dtype=carry[0].dtype,
+                                  device=values.device)
+        rc = lib.segsum_wide_launch(
+            _TIERS[name], values.data_ptr(), ids.data_ptr(),
+            None if contrib is None else contrib.data_ptr(), *ptrs, n,
+            block_rows, seg_offset, w // policy.parts, nl, plan.vec, stream)
+        if rc != 0:
+            raise RuntimeError(f"K1 launch failed for {name}: CUDA error "
+                               f"{rc}")
+        LAUNCHES += 1
+        return carry
+    ct, st, _ = plan
     chunk = 0 if policy.integer else ops.tree_rows_for(block_rows, nl)
     ranges = torch.empty((-(-n // block_rows), 2), dtype=torch.int32,
                          device=values.device)
-    ptrs = [c.data_ptr() for c in carry] + [None] * (4 - len(carry))
-    lib = _build.load("segsum")
     rc = lib.segsum_policy_launch(
         _TIERS[name], values.data_ptr(), ids.data_ptr(), ranges.data_ptr(),
         *ptrs, n, block_rows, num_segments, seg_offset, w // policy.parts,
-        nl, st, ct, chunk,
-        torch.cuda.current_stream(values.device).cuda_stream)
+        nl, st, ct, chunk, stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed for {name}: CUDA error {rc}")
     LAUNCHES += 1

@@ -23,6 +23,12 @@ buffers of the tile's contribution, with ``INT_THREADS`` threads, fewer
 so that several CUDA blocks share an SM — within the 227 KB (232,448
 bytes) a Hopper block may use.  The label tiles are the grid's y
 dimension, so one launch covers the whole label space.
+
+A launch with one label takes K1's one-label schedule instead
+(``jugglepac_segsum.wide_plan``): ``WIDE_THREADS`` threads a CUDA block,
+``WIDE_VEC`` columns a thread where the width allows, and, where a
+schedule block holds more than one row, a contribution kernel whose
+shared memory ``wide_smem_bytes`` gives.
 """
 
 from __future__ import annotations
@@ -54,6 +60,18 @@ COL_TILE = 16
 #: padded rows of a float tier's tree chunk, at most (``TREE_ROWS`` in
 #: ``csrc/segsum.cu``)
 TREE_ROWS = 512
+#: rows of a float tier's tree a thread sums in registers (``GROUP_ROWS``
+#: in ``csrc/segsum.cu``)
+GROUP_ROWS = 16
+#: threads of a CUDA block of the one-label schedule's contribution
+#: kernel, and of its fold where B = 1
+WIDE_THREADS = 256
+#: raw columns a thread of the one-label schedule owns: one 16-byte load
+#: a row a plane, where the width and the base address allow
+WIDE_VEC = 4
+#: threads of a CUDA block of the one-label fold where it reads block
+#: contributions (one column each)
+FOLD_THREADS = 64
 
 
 def col_tile_for(d: int) -> int:
@@ -80,6 +98,16 @@ def segsum_smem_bytes(seg_tile: int, col_tile: int, parts: int,
     if tree_rows:
         return 4 * (32 + seg_tile + (2 * tree_rows - 1) * (1 + col_tile))
     return 4 * (32 + 2 * seg_tile * parts * col_tile)
+
+
+def wide_smem_bytes(integer: bool, vec: int) -> int:
+    """Dynamic shared memory of one CUDA block of the one-label
+    schedule's contribution kernel (mirrors ``wide_smem_bytes`` in
+    ``csrc/segsum.cu``), for its 32 * ``vec`` columns: for the float tiers
+    a tree chunk's group sums, ``TREE_ROWS / GROUP_ROWS`` rows; for the
+    integer tiers one partial sum per warp."""
+    rows = WIDE_THREADS // 32 if integer else TREE_ROWS // GROUP_ROWS
+    return 4 * rows * 32 * vec
 
 
 def seg_tile_for(num_segments: int, d: int, parts: int = 1, *,

@@ -174,7 +174,8 @@ def _run_blocked(values, segment_ids, num_segments, *, policy: Policy,
                   staged=True,
                   description="hand-written Hopper kernel (sm_90a): one "
                               "CUDA block per (label tile, column tile) "
-                              "walks the whole schedule in block order")
+                              "walks the whole schedule in block order; "
+                              "at one label a column-wide ordered fold")
 def _run_cuda(values, segment_ids, num_segments, *, policy: Policy,
               block_size: int = 512,
               program: Optional[BlockProgram] = None):

@@ -210,6 +210,94 @@ def test_reduce_runs_on_the_card_by_default(cuda):
         assert torch.equal(out, plain), policy
 
 
+def _one_label_stream(seed, n, d, block, device):
+    """Labels mostly 0, 10% sentinels and 5% of label 1, an all-sentinel
+    schedule block where N allows; values over 2^-30..2^30, 10% -0.0."""
+    rng = np.random.RandomState(seed)
+    ids = np.zeros(n, np.int32)
+    u = rng.rand(n)
+    ids[u < 0.1] = -1
+    ids[(u >= 0.1) & (u < 0.15)] = 1
+    if n >= 3 * block:
+        ids[block:2 * block] = -1
+    vals = rng.randn(n, d) * 2.0 ** rng.randint(-30, 31, (n, d))
+    vals[rng.rand(n, d) < 0.1] = -0.0
+    return (torch.tensor(vals.astype(np.float32), device=device),
+            torch.tensor(ids, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", POLICIES)
+def test_cuda_one_label_bitwise_plain_and_blocked(policy, cuda):
+    """K1's one-label schedule, every carry component bitwise the plain
+    version, at B = 1 (one CUDA kernel: 4 rows, 16-byte and scalar loads)
+    and B = 512 (contributions, then the fold: a ragged N with an
+    all-sentinel block), dot and lane forms; the integer tiers also on a
+    domain near +-2^30 (``ovf`` ends nonzero at 1,024 columns; 4 rows of
+    18 columns may not wrap); ``reduce`` on the
+    ``cuda`` backend bitwise ``blocked`` at one label.  A two-label
+    launch (the label schedule) stays bitwise its plain version."""
+    pol = get_policy(policy)
+    rng = np.random.RandomState(41)
+    for block, n in ((1, 4), (512, 3 * 512 + 77)):
+        for d in (1024, 18):
+            vals, ids = _one_label_stream(block + d, n, d, block, cuda)
+            doms = [pol.prepare(vals, n)[0]]
+            if pol.integer:
+                w = pol.parts * d
+                near = (2 ** 30 - 64 * rng.randint(0, 1024, (n, w))) \
+                    * rng.choice([-1, 1], (n, w))
+                dom = np.where(rng.rand(n, w) < 0.5, near,
+                               rng.randint(-2 ** 20, 2 ** 20, (n, w)))
+                doms.append(torch.tensor(
+                    dom.astype(np.float32 if policy == "exact2"
+                               else np.int32), device=cuda))
+            pad = (-n) % block
+            pids = torch.cat([ids, ids.new_full((pad,), -1)])
+            for k, dom in enumerate(doms):
+                pdom = torch.cat([dom, dom.new_zeros((pad, dom.shape[1]))])
+                for contrib in ("dot", "lanes"):
+                    prog = plan_program(pol, num_segments=1,
+                                        domain_width=dom.shape[1],
+                                        block_size=block, contrib=contrib)
+                    before = K.LAUNCHES
+                    kern = K.segsum_policy_cuda(dom, ids, 1, policy=pol,
+                                                program=prog,
+                                                block_rows=block)
+                    assert K.LAUNCHES == before + 1
+                    plain = K.segsum_policy_torch(pdom, pids, 1, policy=pol,
+                                                  program=prog,
+                                                  block_rows=block)
+                    torch.cuda.synchronize()
+                    for a, b in zip(plain, kern):
+                        assert torch.equal(a.view(torch.int32),
+                                           b.view(torch.int32)), \
+                            (block, d, k, contrib)
+                if k == 1 and policy != "exact" and d == 1024:
+                    assert kern[-1].any(), block    # the carry wrapped
+            for contrib in ("dot", "lanes"):
+                got, want = (repro_torch.reduce(
+                    vals, segment_ids=ids, num_segments=1, policy=policy,
+                    block_size=block, contrib=contrib, backend=backend)
+                    for backend in ("cuda", "blocked"))
+                assert torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32)), (block, d)
+    vals, ids = _stream(16, 3000, 16, 2)
+    dom, _ = pol.prepare(torch.tensor(vals, device=cuda), len(ids))
+    tids = torch.tensor(ids, device=cuda)
+    assert not isinstance(K.launch_plan(pol, 2, dom.shape[1], 3000, 512),
+                          K.WidePlan)
+    pad = (-3000) % 512
+    plain = K.segsum_policy_torch(
+        torch.cat([dom, dom.new_zeros((pad, dom.shape[1]))]),
+        torch.cat([tids, tids.new_full((pad,), -1)]), 2, policy=pol,
+        block_rows=512)
+    kern = K.segsum_policy_cuda(dom, tids, 2, policy=pol, block_rows=512)
+    torch.cuda.synchronize()
+    for a, b in zip(plain, kern):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 # ---------------------------------------------------------------------------
 # K2-K5 against their plain versions
 # ---------------------------------------------------------------------------
