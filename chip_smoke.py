@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port: ``python3 chip_smoke.py``.
 
-Drives the port's four paths on one NVIDIA GPU.  First the reduce
+Drives the port's paths on one NVIDIA GPU.  First the reduce
 front door: ``repro_torch.reduce(values, segment_ids=, num_segments=1024,
 policy=p)`` once per accuracy tier, at N=4,000,000 rows x D=64 f32 in
 1,024 back-to-back variable-length sets (about 1% of rows labeled
@@ -14,7 +14,9 @@ stablelm-1.6b at full width (bf16, random weights) through the port's
 ``Engine``, decode attention on K2 and ``mean_logprob`` on K1.  The
 training path: stablelm-1.6b at full width through the port's train step
 (the JugglePAC gradient juggler; microbatch gradients and the clip norm
-on K1; AdamW).  All data is drawn from ``--seed``.  Phases, in order; any
+on K1; AdamW), then its train state checkpointed and resumed
+(``repro_torch.ckpt``), and the streaming accumulators at the INTAC
+shape.  All data is drawn from ``--seed``.  Phases, in order; any
 failure exits nonzero:
 
 1. device — the card's name and power limit, as nvidia-smi prints them;
@@ -91,7 +93,27 @@ failure exits nonzero:
    stream (270,336 x 1,024, B = 512), bitwise their plain versions and
    timed beside ``torch.sum(0)`` in f32; timings: ms per juggler and
    exact step, tokens/s, peak memory, and K1's and the domain
-   preparation's ms inside an exact step.
+   preparation's ms inside an exact step;
+12. checkpoint — the same ``CONFIG`` cut to 4 layers (the embedding and
+   head leaves full width; weights from the seed) after one
+   juggler step: the train state (12 bf16 parameter leaves, 24 f32
+   moments, the count; ``train.checkpoint_state``) saved with
+   ``ckpt.save`` at zlib level 6 (seconds, GB on disk, GB/s); two steps
+   from one state bitwise equal (the step is repeatable); the snapshot
+   restored in place with ``restore_latest_valid`` (seconds) over the
+   state a step later, every leaf bitwise, the model's parameters still
+   views of the leaves; the next step from it bitwise the uninterrupted
+   one; a newer snapshot with one flipped bit (``faults.corrupt_
+   checkpoint``): ``restore`` raises ``CheckpointError``,
+   ``restore_latest_valid`` falls back to the older step bitwise; the
+   snapshots live under a temporary directory in ``build/``, removed at
+   the end; no kernel of the port on this path;
+13. accumulators — phase 8's stream (32,768 x 6,144, |x| < 2^5) pushed
+   row by row on the card: ``LimbAccumulator`` at scale 2^24 bitwise
+   K5's limbs in canonical form; ``Limb3Accumulator`` and
+   ``BinAccumulator`` bitwise their CPU runs, state and finalize;
+   ``KahanAccumulator`` and ``CascadeAccumulator(2)`` within their
+   stated bounds of float64; each accumulator's ms (CUDA events).
 
 Times are CUDA-event medians after a warm-up (plain versions: one
 host-clock run; K1 on the train path: the sum over a step's launches,
@@ -176,6 +198,14 @@ TRAIN_CUT_LAYERS = 2
 #: for the norm's sums of squares (24) and one across the leaves
 TRAIN_LEAVES = 12
 K1_PER_STEP = TRAIN_LEAVES + 2 * TRAIN_LEAVES + 1
+#: the checkpoint phase keeps its two snapshots (steps 1 and 2) under a
+#: temporary directory in the checkout's build/ and removes it
+CKPT_KEEP = 2
+#: the checkpoint phase runs stablelm-1.6b at 4 layers: at 24 its state
+#: (16.4 GB) took 317-380 s of the phase, most of it deflating on the
+#: host's 8 cores, and the script 633-800 s of its 1,200; at 4 the state
+#: is 6.2 GB, 4.1 of them the full-width embedding and head leaves
+CKPT_LAYERS = 4
 
 
 def fail(msg: str) -> int:
@@ -1466,6 +1496,7 @@ def train_phase(seed, dev, smi):
         # the same reductions on one step's microbatch gradients, each K1
         # launch also timed and held against its plain version (no model
         # or moments alive: an embedding-wide exact2 domain is 26 GB)
+        torch.cuda.reset_peak_memory_stats()
         gs = microbatch_grads(small, batch, TRAIN_MB)
         with K1Probe(measure=True) as probe:
             check_grad_reductions(gs, tier, f"n_layers={TRAIN_CUT_LAYERS}")
@@ -1479,13 +1510,337 @@ def train_phase(seed, dev, smi):
               f"{loss:.4f}, K1 launches {launches}, each of a step's "
               f"{len(probe.records)} bitwise its plain version; K1 "
               f"{entry['ms']:.3f} ms a step (bound {entry['bound_ms']:.3f}, "
-              f"plain {entry['plain_ms']:.1f}) | {smi}", flush=True)
+              f"plain {entry['plain_ms']:.1f}); peak memory of the check "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | "
+              f"{smi}", flush=True)
         entries.append(entry)
         del gs, probe
         torch.cuda.empty_cache()
     del small
     torch.cuda.empty_cache()
     return entries
+
+
+def reset_launches():
+    """Set every kernel's launch count to 0."""
+    import importlib
+    from repro_torch.kernels import jugglepac_segsum as K
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
+    ia = importlib.import_module("repro_torch.kernels.intac_accum")
+    K.LAUNCHES = 0
+    ia.LAUNCHES = 0
+    for mode in fd.LAUNCHES:
+        fd.LAUNCHES[mode] = 0
+
+
+def read_launches() -> dict:
+    """Every kernel's launch count since ``reset_launches``."""
+    import importlib
+    from repro_torch.kernels import jugglepac_segsum as K
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
+    ia = importlib.import_module("repro_torch.kernels.intac_accum")
+    return {"K1": K.LAUNCHES, "K2": fd.LAUNCHES["dense"],
+            "K3": fd.LAUNCHES["partial"], "K4": fd.LAUNCHES["paged"],
+            "K5": ia.LAUNCHES}
+
+
+def state_leaves(model, state) -> dict:
+    """The train state's 37 live leaves under the reference's keys."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.train import checkpoint_state
+    return ckpt.flatten(checkpoint_state(model, state))
+
+
+def differing(leaves, copies) -> list:
+    """Keys whose live leaf is not bitwise its copy."""
+    import torch
+    return [k for k, v in leaves.items() if not torch.equal(v, copies[k])]
+
+
+def ckpt_phase(seed, dev, smi):
+    """Phase 12: the train state of stablelm-1.6b at full width, cut to
+    ``CKPT_LAYERS`` layers, saved, restored in place, trained on,
+    corrupted and fallen back from."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataCfg, SyntheticLM
+    from repro_torch.models import convert
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.testing import faults
+    from repro_torch.train import checkpoint_state, init_state, make_train_step
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=CKPT_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 23)
+    model = M.init_params(cfg, generator=gen, device=dev)
+    data = SyntheticLM(DataCfg(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH, seed=seed))
+    batches = [{k: torch.as_tensor(v, device=dev)
+                for k, v in data.batch(i).items()} for i in (0, 1)]
+    step = make_train_step(cfg, lr_fn=adamw.cosine_schedule(TRAIN_LR, 1,
+                                                            TRAIN_STEPS),
+                           num_microbatches=TRAIN_MB, device=dev)
+    state = init_state(model)
+    torch.cuda.reset_peak_memory_stats()
+
+    # 1. one juggler step, so the moments are nonzero; no kernel of the
+    # port on this path (counts set to 0 just before, read just after)
+    reset_launches()
+    model, state, met = step(model, state, batches[0])
+    torch.cuda.synchronize()
+    counts = read_launches()
+    live = state_leaves(model, state)
+    raw = sum(v.numel() * v.element_size() for v in live.values())
+    kinds = {}
+    for v in live.values():
+        kinds[str(v.dtype).split(".")[1]] = \
+            kinds.get(str(v.dtype).split(".")[1], 0) + 1
+    print(f"ckpt: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab}, {cfg.dtype}) after one juggler step (loss "
+          f"{float(met['loss']):.4f}, kernel launches {counts}): "
+          f"{len(live)} leaves {kinds}, {raw / 1e9:.3f} GB raw", flush=True)
+    check(len(live) == 3 * TRAIN_LEAVES + 1 and sum(counts.values()) == 0
+          and kinds == {"bfloat16": TRAIN_LEAVES, "float32": 2 * TRAIN_LEAVES,
+                        "int32": 1}
+          and all(bool(torch.any(v != 0)) for k, v in live.items()
+                  if ".mu/" in k or ".nu/" in k),
+          "ckpt: the train state is not 12 bf16 leaves, 24 nonzero f32 "
+          "moments and a count, or the juggler step launched a kernel")
+    held = {k: v.clone() for k, v in live.items()}        # state 1
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="ckpt_smoke_", dir=ROOT / "build"))
+    try:
+        # 2. save step 1 at the reference's zlib level, timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(root, 1, checkpoint_state(model, state), keep=CKPT_KEEP,
+                  extra={"next_step": 2})
+        save_s = time.perf_counter() - t0
+        disk = sum(f.stat().st_size for f in (root / "step_00000001").iterdir())
+        print(f"time ckpt save: {save_s:.3f} s for {raw / 1e9:.3f} GB raw "
+              f"({raw / 1e9 / save_s:.3f} GB/s), {disk / 1e9:.3f} GB on disk "
+              f"(ratio {disk / raw:.4f}), zlib level {ckpt.LEVEL}, "
+              f"{ckpt._threads()} threads, chunks of {ckpt.CHUNK_BYTES >> 20} "
+              f"MiB | {smi}", flush=True)
+
+        # 5a. two steps from one state agree: a step from state 1, then
+        # state 1 written back in place and the step again
+        model, state, met_a = step(model, state, batches[1])
+        after = {k: v.clone() for k, v in state_leaves(model, state).items()}
+        for k, v in state_leaves(model, state).items():
+            v.copy_(held[k])
+        model, state, met_b = step(model, state, batches[1])
+        bad = differing(state_leaves(model, state), after)
+        same_loss = float(met_a["loss"]) == float(met_b["loss"])
+        print(f"check step repeatable: two juggler steps from one state: "
+              f"loss {float(met_a['loss'])!r} and {float(met_b['loss'])!r}, "
+              f"{len(after) - len(bad)} of {len(after)} leaves bitwise"
+              f"{'' if not bad else ' (differ: ' + ', '.join(bad) + ')'}",
+              flush=True)
+        check(same_loss and not bad,
+              "ckpt: a train step from one state is not repeatable")
+
+        # 3. restore the newest valid snapshot into the live leaves (which
+        # hold state 2 now), timed; every leaf bitwise state 1
+        leaves_before = convert.stacked_leaves(model)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ckpt.restore_latest_valid(root, checkpoint_state(model, state),
+                                        inplace=True)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        bad = differing(state_leaves(model, state), held)
+        print(f"time ckpt restore: {restore_s:.3f} s ({raw / 1e9 / restore_s:.3f} "
+              f"GB/s raw), step {got[2]}, next_step "
+              f"{got[1]['extra']['next_step']} | {smi}", flush=True)
+        # 4. the model's parameters still view the restored leaves
+        leaves = convert.stacked_leaves(model)
+        named = dict(model.named_parameters())
+        views = leaves is leaves_before and all(
+            [named[n].data_ptr() for n in names]
+            == [r.data_ptr() for r in (leaves[path] if path.startswith(
+                "blocks/") else [leaves[path]])]
+            for path, names in convert.reference_leaves(cfg))
+        print(f"check restore: {len(held) - len(bad)} of {len(held)} leaves "
+              f"bitwise the saved state (12 bf16 parameters, 24 f32 moments, "
+              f"count {int(state.count)}); the model's parameters "
+              f"{'still views' if views else 'NOT views'} of the restored "
+              f"leaves", flush=True)
+        check(got[2] == 1 and not bad and views,
+              "ckpt: the restore is not bitwise, or broke the views")
+
+        # 5b. the same next step from the restored state
+        model, state, met_c = step(model, state, batches[1])
+        bad = differing(state_leaves(model, state), after)
+        print(f"check resumed step: loss {float(met_c['loss'])!r} (the "
+              f"uninterrupted {float(met_a['loss'])!r}), {len(after) - len(bad)} "
+              f"of {len(after)} leaves bitwise the uninterrupted step",
+              flush=True)
+        check(float(met_c["loss"]) == float(met_a["loss"]) and not bad,
+              "ckpt: the step from the restored state differs")
+        del after
+
+        # 6. a newer snapshot, a flipped bit in it: restore raises, the
+        # newest valid one is step 1.  Step 2 is written as stored zlib
+        # blocks (level 0: the same format, a few seconds); the save timed
+        # above is step 1's
+        ckpt.save(root, 2, checkpoint_state(model, state), keep=CKPT_KEEP,
+                  extra={"next_step": 3}, level=0)
+        target = faults.corrupt_checkpoint(root, 2, mode="bitflip")
+        t0 = time.perf_counter()
+        try:
+            ckpt.restore(root, 2, checkpoint_state(model, state), inplace=True)
+            err = None
+        except ckpt.CheckpointError as e:
+            err = e
+        detect_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = ckpt.restore_latest_valid(root, checkpoint_state(model, state),
+                                        inplace=True)
+        torch.cuda.synchronize()
+        fall_s = time.perf_counter() - t0
+        bad = differing(state_leaves(model, state), held)
+        print(f"check corruption: one bit flipped in {target.name} of step 2: "
+              f"restore {'raised CheckpointError (' + str(err)[-120:] + ')' if err else 'DID NOT RAISE'} "
+              f"in {detect_s:.3f} s; restore_latest_valid fell back to step "
+              f"{got[2]} in {fall_s:.3f} s, {len(held) - len(bad)} of "
+              f"{len(held)} leaves bitwise step 1; peak memory of the "
+              f"phase {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+              flush=True)
+        check(err is not None and "CRC32" in str(err) and got[2] == 1
+              and not bad, "ckpt: the corruption was not detected, or the "
+              "fall-back did not restore step 1")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # ``got`` holds the live leaves too (the restored tree)
+    del model, state, held, live, leaves, leaves_before, named, got, step
+    del batches, met, met_a, met_b, met_c
+    torch.cuda.empty_cache()
+
+
+def push_rows(acc, x):
+    """Push the rows of ``x`` through ``acc`` in order -> (state, ms by
+    CUDA events, or by the host clock on the CPU).  Inference mode: each
+    push is dozens of small launches, and autograd's bookkeeping on them
+    is host time."""
+    import torch
+    with torch.inference_mode():
+        st = acc.init(x[0])
+        if not x.is_cuda:
+            t0 = time.perf_counter()
+            for row in x:
+                st = acc.push(st, row)
+            return st, (time.perf_counter() - t0) * 1e3
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for row in x:
+            st = acc.push(st, row)
+        b.record()
+        b.synchronize()
+        return st, a.elapsed_time(b)
+
+
+def accum_phase(seed, dev, smi):
+    """Phase 13: the streaming accumulators at the INTAC shape on the
+    card, each row of the stream one push."""
+    import torch
+    import repro_torch.reduce as R
+    from repro_torch.core import intac as I
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 3)                 # phase 8's stream
+    n, d, scale = INTAC_ROWS, INTAC_COLS, INTAC_SCALE
+    torch.cuda.reset_peak_memory_stats()
+    mag = torch.randint(-12, 4, (n, d), generator=gen, device=dev)
+    x = (torch.randn((n, d), generator=gen, device=dev)
+         * torch.exp2(mag.to(torch.float32))).clamp(-31.0, 31.0)
+    del mag
+    xc = x.cpu()
+    times = {}
+
+    # LimbAccumulator against K5 under the same scale (no kernel of the
+    # port in the pushes: counts set to 0 just before, read just after)
+    reset_launches()
+    limb, times["LimbAccumulator"] = push_rows(R.LimbAccumulator(scale), x)
+    counts = read_launches()
+    k5 = ops.intac_accum(x, scale)
+    raw_ok = torch.equal(limb.hi, k5[0]) and torch.equal(limb.lo, k5[1])
+    ch, cl = I.limbs_canonical(limb.hi, limb.lo)
+    kh, kl = I.limbs_canonical(k5[0], k5[1])
+    canon_ok = torch.equal(ch, kh) and torch.equal(cl, kl)
+    print(f"check LimbAccumulator: {n} pushes of ({d},) rows, scale 2^"
+          f"{int(math.log2(scale))}, kernel launches {counts}: (hi, lo) "
+          f"{'bitwise' if canon_ok else 'DIFFER from'} K5's intac_accum in "
+          f"canonical form (raw limbs {'bitwise' if raw_ok else 'differ'})",
+          flush=True)
+    check(canon_ok and sum(counts.values()) == 0,
+          "accumulators: LimbAccumulator differs from K5")
+
+    # Limb3Accumulator and BinAccumulator: bitwise their CPU run
+    max_abs = float(x.abs().max())
+    for name, acc in (("Limb3Accumulator", R.Limb3Accumulator(scale)),
+                      ("BinAccumulator", R.BinAccumulator(max_abs))):
+        reset_launches()
+        st, times[name] = push_rows(acc, x)
+        counts = read_launches()
+        st_c, cpu_ms = push_rows(acc, xc)
+        fields = list(st) if isinstance(st, tuple) else [st]
+        fields_c = list(st_c) if isinstance(st_c, tuple) else [st_c]
+        ok = all(torch.equal(a.cpu(), b) for a, b in zip(fields, fields_c)
+                 if a is not None)
+        fin_ok = torch.equal(acc.finalize(st).cpu(), acc.finalize(st_c))
+        print(f"check {name}: card state {'bitwise' if ok else 'DIFFERS from'} "
+              f"its CPU run, finalize {'bitwise' if fin_ok else 'DIFFERS'} "
+              f"(CPU {cpu_ms:.1f} ms on the host clock), kernel launches "
+              f"{counts}", flush=True)
+        check(ok and fin_ok and sum(counts.values()) == 0,
+              f"accumulators: {name} on the card differs from the CPU")
+        del st, st_c
+
+    # Kahan (Sum2: |res - s| <= u|s| + gamma_{n-1}^2 sum|x|, Ogita, Rump
+    # and Oishi 2005) and a depth-2 Cascade (stage k: k gamma_n of its
+    # weighted |x| sum) against float64
+    x64 = x.double()
+    absum = x64.abs().sum(0)
+    s64 = x64.sum(0)
+    gam = lambda k: k * U / (1 - k * U)  # noqa: E731
+    reset_launches()
+    kahan, times["KahanAccumulator"] = push_rows(R.KahanAccumulator(), x)
+    cascade_acc = R.CascadeAccumulator(2)
+    casc, times["CascadeAccumulator(2)"] = push_rows(cascade_acc, x)
+    counts = read_launches()
+    k_err = (R.KahanAccumulator().finalize(kahan).double() - s64).abs()
+    k_bound = U * s64.abs() + gam(n - 1) ** 2 * absum
+    w = R.cascade_weights(n, 2).to(dev).double()
+    c_ref = w @ x64
+    c_bound = torch.stack([(k + 1) * gam(n) * (w[k] @ x64.abs())
+                           for k in range(2)])
+    c_err = (cascade_acc.finalize(casc).double() - c_ref).abs()
+    k_ok, c_ok = bool((k_err <= k_bound).all()), bool((c_err <= c_bound).all())
+    print(f"check KahanAccumulator: max |err| {float(k_err.max()):.3e} vs "
+          f"float64, within its bound {'everywhere' if k_ok else 'NOT'} (max "
+          f"err/bound {float((k_err / k_bound).max()):.3e}); "
+          f"CascadeAccumulator(2): max |err| {float(c_err.max()):.3e}, within "
+          f"its bound {'everywhere' if c_ok else 'NOT'} (max err/bound "
+          f"{float((c_err / c_bound).max()):.3e}); kernel launches {counts}",
+          flush=True)
+    check(k_ok and c_ok and sum(counts.values()) == 0,
+          "accumulators: Kahan or Cascade outside its bound")
+    print("time accumulators: " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in times.items())
+        + f" for {n} pushes of ({d},) rows (CUDA events); peak memory of "
+        f"the phase {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | "
+        f"{smi}", flush=True)
+    del x, xc, x64, absum, s64, kahan, casc, w, c_ref
+    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -1510,6 +1865,7 @@ def main(argv=None) -> int:
         return fail(f"cannot import the port ({e}); run from the root of "
                     "the repository")
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     # 1. device
     smi = device_line()
@@ -1772,6 +2128,14 @@ def main(argv=None) -> int:
     kernels.append(intac_phase(args.seed, dev, smi))
     kernels += serve_phase(args.seed, dev, smi)
     kernels += train_phase(args.seed, dev, smi)
+    print(f"elapsed after phase 11: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    ckpt_phase(args.seed, dev, smi)
+    print(f"elapsed after phase 12: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    accum_phase(args.seed, dev, smi)
+    print(f"elapsed after phase 13: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,16 @@
 """INTAC numerics in PyTorch: exact accumulation in an integer domain.
 
-The counterpart of the reference's ``core/intac.py`` for the pieces the
-single-device reduce path uses: quantization to a shared power-of-two
-scale, int32 limbs with an exact wraparound predicate, and the
-exponent-indexed digit bins of the ``exact2`` residual and the
-``procrastinate`` tier.  Every function is elementwise on tensors and
-runs on whatever device its input lives on; each one gives the
-reference's bits on the inputs where both are IEEE-exact.
+The counterpart of the reference's ``core/intac.py`` on one device:
+quantization to a shared power-of-two scale, int32 limbs with an exact
+wraparound predicate, the exponent-indexed digit bins of the ``exact2``
+residual and the ``procrastinate`` tier, ``intac_sum``, and the two- and
+three-limb carry-save states (``LimbState``, ``Limb3State``) that the
+streaming accumulators of ``reduce.accumulator`` push into.  Every
+function is elementwise (or a column sum) on tensors and runs on
+whatever device its input lives on; each one gives the reference's bits
+on the inputs where both are IEEE-exact.  The cross-device merges
+(``intac_psum*``, ``limb3_merge_across``) are not here: the port runs
+on one device.
 
 Two places depart from a literal transcription, on purpose:
 
@@ -29,7 +33,7 @@ to 0, as XLA's conversion does.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -57,8 +61,10 @@ def pow2(e: torch.Tensor) -> torch.Tensor:
     rounding-free multiply), 0 below 2^-149 and inf above 2^127."""
     e = e.to(torch.int32)
     normal = ((e.clamp(-126, 127) + 127) << 23).view(torch.float32)
+    # a Python scalar, not a tensor made on the host: that would be a
+    # host-to-device copy, and a stream sync, at every call on the card
     tiny = ((e.clamp(-252, -127) + 126 + 127) << 23).view(torch.float32) \
-        * torch.tensor(2.0 ** -126, dtype=torch.float32, device=e.device)
+        * (2.0 ** -126)
     out = torch.where(e >= -126, normal, tiny)
     return torch.where(e > 127, torch.full_like(out, float("inf")), out)
 
@@ -159,6 +165,36 @@ def dequantize(q: torch.Tensor, scale) -> torch.Tensor:
     return descale(q.to(torch.float32), scale)
 
 
+def intac_sum(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Exact-within-quantization, order-independent sum along ``axis``:
+    one scale from the whole array's max |x| and the term count, int32
+    quanta summed (wrapping, as the reference's int32 sum), descaled."""
+    x = x.to(torch.float32)
+    n = x.shape[axis]
+    scale = choose_scale(torch.max(torch.abs(x)), n).to(x.device)
+    q = quantize(x, scale)
+    return dequantize(torch.sum(q, dim=axis, dtype=torch.int32), scale)
+
+
+class LimbState(NamedTuple):
+    """Two-limb carry-save accumulator: the value is
+    (hi * 2^15 + lo) / scale.  Carries between the limbs wait for
+    ``limbs_resolve``."""
+    hi: torch.Tensor      # int32
+    lo: torch.Tensor      # int32
+    scale: torch.Tensor   # f32, 0-d
+
+
+def _scale_tensor(scale, device) -> torch.Tensor:
+    return torch.as_tensor(scale, dtype=torch.float32).to(device)
+
+
+def limb_init(shape, scale, *, device=None) -> LimbState:
+    """Zero limbs of ``shape`` on ``device`` (None: the CPU)."""
+    z = torch.zeros(tuple(shape), dtype=torch.int32, device=device)
+    return LimbState(z, z, _scale_tensor(scale, z.device))
+
+
 def limb_split(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """q == hi * 2^15 + lo with lo in [0, 2^15): arithmetic shift + mask."""
     q = q.to(torch.int32)
@@ -168,6 +204,111 @@ def limb_split(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def limbs_canonical(hi: torch.Tensor, lo: torch.Tensor):
     """Carry lo's bits above LIMB_SHIFT into hi (the Euclidean pair)."""
     return hi + (lo >> LIMB_SHIFT), lo & ((1 << LIMB_SHIFT) - 1)
+
+
+def limb_add(state: LimbState, x: torch.Tensor) -> LimbState:
+    """Push one operand: quantize to int32 first (|x * scale| < 2^31),
+    split with shift and mask, add each limb."""
+    hi, lo = limb_split(quantize(x, state.scale))
+    return LimbState(state.hi + hi, state.lo + lo, state.scale)
+
+
+def limbs_resolve(hi: torch.Tensor, lo: torch.Tensor, scale) -> torch.Tensor:
+    """Canonicalize the limbs, then one f32 rounding: hi * 2^15 + lo,
+    descaled.  ``lo`` is a sum of remainders in [0, 2^15), so >= 0."""
+    hi, lo = limbs_canonical(hi, lo)
+    total = ldexp(hi.to(torch.float32), LIMB_SHIFT) + lo.to(torch.float32)
+    return descale(total, scale)
+
+
+def limb_finalize(state: LimbState) -> torch.Tensor:
+    return limbs_resolve(state.hi, state.lo, state.scale)
+
+
+def limb_merge(a: LimbState, b: LimbState) -> LimbState:
+    """Integer adds: exact and order-free; ``a``'s scale is kept."""
+    return LimbState(a.hi + b.hi, a.lo + b.lo, a.scale)
+
+
+class Limb3State(NamedTuple):
+    """Three-limb carry-save accumulator: (hi, lo) int32 limbs plus the
+    compensated f32 residual pair (res, comp); the value is
+    (hi * 2^15 + lo) / scale + res + comp.  ``ovf`` counts int32 limb
+    wraps (``wrap_add``); None turns the count off."""
+    hi: torch.Tensor      # int32
+    lo: torch.Tensor      # int32
+    res: torch.Tensor     # f32: the exactly captured quantization residuals
+    comp: torch.Tensor    # f32: the two_sum compensation of ``res``
+    scale: torch.Tensor   # f32, 0-d
+    ovf: Optional[torch.Tensor] = None
+
+
+def limb3_init(shape, scale, *, device=None) -> Limb3State:
+    z = torch.zeros(tuple(shape), dtype=torch.int32, device=device)
+    r = torch.zeros(tuple(shape), dtype=torch.float32, device=device)
+    return Limb3State(z, z, r, r, _scale_tensor(scale, z.device), z)
+
+
+def limb_split3(x: torch.Tensor, scale):
+    """One f32 operand -> (hi, lo, residual), losslessly: the residual
+    x - q / scale is exact for a power-of-two scale (Sterbenz)."""
+    x = x.to(torch.float32)
+    q = quantize(x, scale)
+    hi, lo = limb_split(q)
+    return hi, lo, x - dequantize(q, scale)
+
+
+def limb_add3(state: Limb3State, x: torch.Tensor) -> Limb3State:
+    """Push one operand: limbs through ``wrap_add`` (each wrap counted in
+    ``ovf``), the residual through ``two_sum``."""
+    hi, lo, r = limb_split3(x, state.scale)
+    nhi, w1 = wrap_add(state.hi, hi)
+    nlo, w2 = wrap_add(state.lo, lo)
+    s, e = two_sum(state.res, r)
+    ovf = state.ovf
+    if ovf is not None:
+        ovf = ovf + w1.to(torch.int32) + w2.to(torch.int32)
+    return Limb3State(nhi, nlo, s, state.comp + e, state.scale, ovf)
+
+
+def limb_merge3(a: Limb3State, b: Limb3State) -> Limb3State:
+    """Limbs add exactly (wraps counted), the residual pairs through
+    ``two_sum``: deterministic for a pinned merge order."""
+    nhi, w1 = wrap_add(a.hi, b.hi)
+    nlo, w2 = wrap_add(a.lo, b.lo)
+    s, e = two_sum(a.res, b.res)
+    ovf = None
+    if a.ovf is not None or b.ovf is not None:
+        za = torch.zeros_like(nhi)
+        ovf = ((a.ovf if a.ovf is not None else za)
+               + (b.ovf if b.ovf is not None else za)
+               + w1.to(torch.int32) + w2.to(torch.int32))
+    return Limb3State(nhi, nlo, s, a.comp + b.comp + e, a.scale, ovf)
+
+
+def limbs_resolve3(hi: torch.Tensor, lo: torch.Tensor, res: torch.Tensor,
+                   scale, comp: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """Canonicalize the limbs, split hi once more (it may need 31 bits),
+    and fold lo, hi's low and high parts into the residual pair
+    least-significant-first through compensated two-sums."""
+    hi, lo = limbs_canonical(hi, lo)
+    hsplit = 14
+    hih = hi >> hsplit
+    hil = hi & ((1 << hsplit) - 1)
+    acc = res.to(torch.float32)
+    cmp_ = torch.zeros_like(acc) if comp is None else comp.to(torch.float32)
+    for quanta, shift in ((lo, 0), (hil, LIMB_SHIFT),
+                          (hih, LIMB_SHIFT + hsplit)):
+        term = descale(_ldexp2(quanta.to(torch.float32), shift), scale)
+        acc, e = two_sum(acc, term)
+        cmp_ = cmp_ + e
+    return acc + cmp_
+
+
+def limb3_finalize(state: Limb3State) -> torch.Tensor:
+    return limbs_resolve3(state.hi, state.lo, state.res, state.scale,
+                          comp=state.comp)
 
 
 def bin_ref_exponent(max_abs) -> torch.Tensor:

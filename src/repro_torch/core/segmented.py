@@ -40,6 +40,29 @@ def segment_count_ref(segment_ids: torch.Tensor, num_segments: int,
     return segment_sum_ref(w, segment_ids, num_segments)
 
 
+def segment_mean(values: torch.Tensor, segment_ids: torch.Tensor,
+                 num_segments: int, *, impl=segment_sum_ref,
+                 valid: Optional[torch.Tensor] = None,
+                 eps: float = 1e-9) -> torch.Tensor:
+    """Per-segment mean; the sums *and the counts* go through ``impl``.
+
+    ``impl`` is any segment sum with the ``(values, ids, num_segments)``
+    contract (the oracle above, a ``repro_torch.reduce`` executor, the
+    kernel wrapper).  ``valid`` masks rows out of both by relabeling them
+    ``OUT_OF_RANGE_LABEL``; a count is floored at ``eps``."""
+    # imported here: repro_torch.reduce imports this module as it loads
+    from ..reduce.backends import OUT_OF_RANGE_LABEL
+    ids = segment_ids.to(torch.int32)
+    if valid is not None:
+        ids = torch.where(valid, ids,
+                          torch.full_like(ids, OUT_OF_RANGE_LABEL))
+    s = impl(values, ids, num_segments)
+    c = impl(torch.ones(ids.shape, dtype=torch.float32, device=ids.device),
+             ids, num_segments)
+    c = torch.clamp_min(c.to(torch.float32), eps)
+    return s / c.reshape((num_segments,) + (1,) * (s.ndim - 1))
+
+
 def segments_from_lengths(lengths, total: int) -> torch.Tensor:
     """Build a monotone int32 segment-id vector from per-set lengths.
 

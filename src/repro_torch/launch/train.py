@@ -8,12 +8,23 @@ The weights are random, drawn from ``--seed``; the tokens come from
 ``--data`` (a packed token file) or the seeded ``SyntheticLM`` stream,
 whose ``batch(step)`` is a pure function of (seed, step).  Each step is
 ``train.make_train_step(remat=False)`` with the cosine schedule, as the
-reference launcher runs it; ``--simulate-failure-at K`` exits with code
-17 after step K.
+reference launcher runs it.
+
+Fault tolerance, as the reference launcher's:
+  * with ``--ckpt-dir`` it snapshots the train state (``{"params": the
+    12 stacked leaves, "opt": AdamWState}``, ``train.checkpoint_state``)
+    every ``--ckpt-every`` steps through ``repro_torch.ckpt``: atomic
+    renames, the newest 3 kept, files the reference reads too;
+  * on start it restores the newest snapshot that verifies (a ``.tmp``
+    left by a crash mid-save, or a shard with a flipped bit, falls back
+    to the step before) into the live model and moments, and resumes at
+    the snapshot's ``next_step``; ``batch(step)`` is pure, so the token
+    stream replays exactly;
+  * ``--simulate-failure-at K`` exits with code 17 after step K (and
+    after its snapshot, when K is a checkpoint step).
 
 What the port lacks raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item: ``--ckpt-dir`` / ``--ckpt-every`` (checkpointing,
-queue 1, item 3), ``--compress-bits`` and ``--microbatches > 1`` (the
+``ROADMAP.md`` item: ``--compress-bits`` and ``--microbatches > 1`` (the
 reference's shard_map step, queue 1, item 5).
 """
 
@@ -26,13 +37,13 @@ import time
 import torch
 
 from .. import resolve_device
+from ..ckpt import checkpoint as ckpt
 from ..configs import get_config, get_smoke_config
 from ..data.pipeline import DataCfg, make_source
 from ..models import init_params
 from ..optim import adamw
-from ..train.steps import init_state, make_train_step
+from ..train.steps import checkpoint_state, init_state, make_train_step
 
-_ITEM3 = "checkpointing is ROADMAP.md queue 1, item 3"
 _ITEM5 = "the shard_map step is ROADMAP.md queue 1, item 5 (multi-device)"
 
 
@@ -46,10 +57,8 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--warmup", type=int, default=20)
-    ap.add_argument("--ckpt-dir", default="",
-                    help="not in the port yet: raises")
-    ap.add_argument("--ckpt-every", type=int, default=None,
-                    help="not in the port yet: raises (reference: 25)")
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--data", default="", help="packed token file (optional)")
     ap.add_argument("--moe-impl", default="dense",
@@ -64,8 +73,6 @@ def main(argv=None):
                     help="torch device; default: the CUDA device")
     args = ap.parse_args(argv)
 
-    if args.ckpt_dir or args.ckpt_every is not None:
-        raise NotImplementedError(f"--ckpt-dir / --ckpt-every: {_ITEM3}")
     if args.compress_bits > 0:
         raise NotImplementedError(f"--compress-bits: {_ITEM5}")
     if args.microbatches > 1:
@@ -85,9 +92,22 @@ def main(argv=None):
     step_fn = make_train_step(cfg, lr_fn=lr_fn, remat=False,
                               moe_impl=args.moe_impl, device=dev)
 
+    start = 0
+    if args.ckpt_dir:
+        # the newest *valid* snapshot, written into the live leaves: a
+        # crash mid-save leaves a .tmp directory (no manifest) and a
+        # flipped bit fails the CRC sidecar; both fall back a step
+        restored = ckpt.restore_latest_valid(
+            args.ckpt_dir, checkpoint_state(model, opt_state), inplace=True)
+        if restored is not None:
+            _, manifest, latest = restored
+            start = manifest["extra"]["next_step"]
+            print(f"[restore] resumed from step {latest} -> next {start}",
+                  flush=True)
+
     t0 = time.time()
     metrics = None
-    for step in range(args.steps):
+    for step in range(start, args.steps):
         model, opt_state, metrics = step_fn(model, opt_state,
                                             source.batch(step))
         if step % args.log_every == 0 or step == args.steps - 1:
@@ -95,6 +115,10 @@ def main(argv=None):
             dt = time.time() - t0
             print(f"step {step:5d} loss {loss:.4f} "
                   f"lr {float(metrics['lr']):.2e} ({dt:.1f}s)", flush=True)
+        if args.ckpt_dir and ckpt.save_every(step, args.ckpt_every):
+            ckpt.save(args.ckpt_dir, step, checkpoint_state(model, opt_state),
+                      extra={"next_step": step + 1, "arch": args.arch})
+            print(f"[ckpt] saved step {step}", flush=True)
         if args.simulate_failure_at and step == args.simulate_failure_at:
             print(f"[failure] simulated crash at step {step}", flush=True)
             os._exit(17)
@@ -102,8 +126,8 @@ def main(argv=None):
     if metrics is None:
         print("done: 0 steps")
         return None
-    print(f"done: {args.steps} steps, final loss "
-          f"{float(metrics['loss']):.4f} on {dev}")
+    print(f"done: {args.steps - start} steps, final loss "
+          f"{float(metrics['loss']):.4f}")
     return float(metrics["loss"])
 
 

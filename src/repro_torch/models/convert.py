@@ -8,8 +8,10 @@ axis, and row ``i`` of each becomes layer ``i * len(period) + j``.  Both
 packages then compute the same function, which is what the tests compare.
 ``to_reference`` goes the other way, for tensors named as the model's
 parameters (the weights or their gradients), and ``stacked_leaves``
-holds a model's parameters in that layout for training.  Nothing here
-imports the reference; the tree is plain nested dicts.
+holds a model's parameters in that layout for training; ``nest`` turns
+such a {path: leaf} dict back into the reference's nested tree (what a
+checkpoint names its leaves by).  Nothing here imports the reference;
+the tree is plain nested dicts, with a list under ``blocks``.
 """
 
 from __future__ import annotations
@@ -93,6 +95,23 @@ def stacked_leaves(model: LM) -> Dict[str, torch.Tensor]:
             ptrs += [(n, named[n].data_ptr()) for n in names]
     model._stacked_leaves = (leaves, tuple(ptrs))
     return leaves
+
+
+def nest(leaves: Mapping[str, torch.Tensor]) -> dict:
+    """{reference path: leaf} (``to_reference``'s or ``stacked_leaves``'s
+    layout) -> the reference's nested tree holding the same tensors:
+    dicts, with ``blocks`` a list indexed by period position."""
+    tree: dict = {}
+    for path, leaf in leaves.items():
+        parts = path.split("/")
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = leaf
+    if "blocks" in tree:
+        tree["blocks"] = [tree["blocks"][str(j)]
+                          for j in range(len(tree["blocks"]))]
+    return tree
 
 
 def params_from_numpy(cfg: ModelConfig, tree, *, device=None) -> LM:

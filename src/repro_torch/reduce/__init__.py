@@ -12,10 +12,12 @@ Three orthogonal knobs, as in the reference package:
 The module itself is callable: ``repro_torch.reduce(values, ...)``.
 """
 
-from .accumulator import (Accumulator, FlashAccumulator,  # noqa: F401
-                          TreeAccumulator, accumulate_microbatch_grads,
-                          merge_tree, reduce_microbatch_grads,
-                          scan_accumulate)
+from .accumulator import (Accumulator, BinAccumulator,  # noqa: F401
+                          CascadeAccumulator, FlashAccumulator,
+                          KahanAccumulator, Limb3Accumulator,
+                          LimbAccumulator, TreeAccumulator,
+                          accumulate_microbatch_grads, merge_tree,
+                          reduce_microbatch_grads, scan_accumulate)
 from .algebra import (REDUCE_OPS, ReduceOp, cascade_poly_coeffs,  # noqa: F401
                       cascade_weights, fir_weights, get_op, poly_weights,
                       register_op)
@@ -49,7 +51,9 @@ __all__ = [
     "Backend", "BACKENDS", "register_backend", "get_backend",
     "select_backend", "select_local_backend", "mask_out_of_range",
     "interop",
-    "Accumulator", "FlashAccumulator", "TreeAccumulator", "merge_tree",
-    "scan_accumulate", "reduce_microbatch_grads",
+    "Accumulator", "TreeAccumulator", "KahanAccumulator",
+    "LimbAccumulator", "Limb3Accumulator", "BinAccumulator",
+    "FlashAccumulator", "CascadeAccumulator",
+    "scan_accumulate", "merge_tree", "reduce_microbatch_grads",
     "accumulate_microbatch_grads",
 ]

@@ -9,12 +9,28 @@ machine of the package:
 ``scan_accumulate`` folds a stacked stream through ``push`` in order;
 ``merge_tree`` merges a list of states in a fixed pairwise tree.
 
-Instances so far:
+Instances:
   * ``TreeAccumulator`` — the binary-counter pairwise tree of
     ``core.juggler`` over a list of tensors: O(log n) live copies, a
     pairing that depends only on the push order;
+  * ``KahanAccumulator`` — the (sum, compensation) two-sum pair of a
+    tensor or a dict, tuple or list of them;
+  * ``LimbAccumulator`` — INTAC's two int32 carry-save limbs
+    (``core.intac.LimbState``): exact on the scale's grid, order-free;
+  * ``Limb3Accumulator`` — the three-limb state: the quantization
+    residual rides along as a compensated f32 pair, so any f32 stream
+    sums to within 1 ulp of float64;
+  * ``BinAccumulator`` — exponent-indexed int32 digit bins anchored at
+    an a-priori max |x|: order-free, one rounding at ``finalize``;
   * ``FlashAccumulator`` — the online-softmax (m, l, o) triple that merges
-    the raw partials of the chunked flash-decode kernel.
+    the raw partials of the chunked flash-decode kernel;
+  * ``CascadeAccumulator`` — ``depth`` chained plain accumulators, whose
+    stages combine into any polynomial time-index weighting.
+
+The integer states (limbs, bins) are bitwise the reference's for any
+push order.  The float states follow the reference's IEEE operations in
+the same order.  Each accumulator's ``merge_across`` (a merge across
+devices) is not ported: the port runs on one device.
 
 Microbatch gradients take one of two paths, as in the reference:
 ``accumulate_microbatch_grads`` pushes each microbatch's gradient through
@@ -32,9 +48,11 @@ from __future__ import annotations
 
 from typing import Any, Protocol, runtime_checkable
 
+import math
+
 import torch
 
-from ..core import juggler
+from ..core import intac, juggler
 from ..core.segmented import flash_finalize, flash_partial_combine
 from ..core.trees import pairwise_tree_sum_pytree
 
@@ -91,6 +109,149 @@ class TreeAccumulator:
         return juggler.juggler_finalize(state, mean=mean)
 
 
+def _map(fn, *trees):
+    """``fn`` over the tensors of equal-structured trees (a tensor, or a
+    dict, tuple or list of them)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_map(fn, *parts) for parts in zip(*trees))
+    return fn(*trees)
+
+
+class KahanAccumulator:
+    """Compensated (sum, comp) accumulation of a tensor or a tree of them:
+    every push is a ``two_sum`` into float32 sums, its error added to the
+    compensation; ``finalize`` is sum + comp.
+
+    >>> import torch
+    >>> acc = KahanAccumulator()
+    >>> st = acc.init(torch.zeros(2))
+    >>> st = acc.push(st, torch.tensor([1.0, 2.0]))
+    >>> st = acc.push(st, torch.tensor([3.0, 4.0]))
+    >>> acc.finalize(st).tolist()
+    [4.0, 6.0]
+    """
+
+    def init(self, template):
+        z = _map(lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                       device=t.device), template)
+        return (z, _map(torch.zeros_like, z))
+
+    def push(self, state, x):
+        acc, comp = state
+        s = _map(lambda a, b: intac.two_sum(a, b)[0], acc, x)
+        e = _map(lambda a, b: intac.two_sum(a, b)[1], acc, x)
+        return (s, _map(torch.add, comp, e))
+
+    def merge(self, a, b):
+        state = self.push(a, b[0])                    # two-sum the sums
+        return (state[0], _map(lambda c, cb: c + cb, state[1], b[1]))
+
+    def finalize(self, state):
+        acc, comp = state
+        return _map(lambda a, c: a + c, acc, comp)
+
+
+class LimbAccumulator:
+    """INTAC two-limb carry-save accumulation, exact within quantization:
+    ``scale`` is the shared power of two (``intac.choose_scale``); push
+    and merge are integer adds, ``finalize`` the one rounding.  Each push
+    needs |x * scale| < 2^31, and each limb's sum must stay in int32.
+
+    >>> import torch
+    >>> acc = LimbAccumulator(2.0 ** 16)
+    >>> a, b = acc.init(torch.zeros(1)), acc.init(torch.zeros(1))
+    >>> for _ in range(10):
+    ...     a = acc.push(a, torch.tensor([0.5]))
+    ...     b = acc.push(b, torch.tensor([0.25]))
+    >>> acc.finalize(acc.merge(a, b)).tolist()
+    [7.5]
+    """
+
+    def __init__(self, scale):
+        self.scale = scale
+
+    def init(self, template) -> intac.LimbState:
+        return intac.limb_init(template.shape, self.scale,
+                               device=template.device)
+
+    def push(self, state, x) -> intac.LimbState:
+        return intac.limb_add(state, x)
+
+    def merge(self, a, b) -> intac.LimbState:
+        return intac.limb_merge(a, b)
+
+    def finalize(self, state) -> torch.Tensor:
+        return intac.limb_finalize(state)
+
+
+class Limb3Accumulator:
+    """INTAC three-limb carry-save accumulation, exact for any f32: each
+    push splits its operand losslessly into (hi, lo, residual); the limbs
+    add as integers (wraps counted in ``ovf``), the residual through a
+    compensated pair; ``finalize`` is within 1 ulp of float64.
+
+    >>> import torch
+    >>> acc = Limb3Accumulator(2.0 ** 16)
+    >>> st = acc.init(torch.zeros(1))
+    >>> for _ in range(3):
+    ...     st = acc.push(st, torch.tensor([1 / 3]))
+    >>> bool(abs(acc.finalize(st)[0] - 1.0) < 1e-7)
+    True
+    """
+
+    def __init__(self, scale):
+        self.scale = scale
+
+    def init(self, template) -> intac.Limb3State:
+        return intac.limb3_init(template.shape, self.scale,
+                                device=template.device)
+
+    def push(self, state, x) -> intac.Limb3State:
+        return intac.limb_add3(state, x)
+
+    def merge(self, a, b) -> intac.Limb3State:
+        return intac.limb_merge3(a, b)
+
+    def finalize(self, state) -> torch.Tensor:
+        return intac.limb3_finalize(state)
+
+
+class BinAccumulator:
+    """Exponent-indexed bin accumulation (procrastination bins): ``max_abs``
+    anchors the fixed-point window a priori; each push adds an exact
+    digit split as int32 bins, and the one rounding is ``finalize``'s.
+    Up to ``intac.BIN_MAX_TERMS`` (2^22) pushes fit in the bins."""
+
+    #: every state leaf merges by addition
+    merge_is_add = True
+
+    def __init__(self, max_abs):
+        self.e_ref = intac.bin_ref_exponent(max_abs)
+        self._anchors = {self.e_ref.device: self.e_ref}
+
+    def _anchor(self, device) -> torch.Tensor:
+        """``e_ref`` on ``device``, copied there once (not at every push)."""
+        if device not in self._anchors:
+            self._anchors[device] = self.e_ref.to(device)
+        return self._anchors[device]
+
+    def init(self, template) -> torch.Tensor:
+        return torch.zeros((intac.NUM_BINS,) + tuple(template.shape),
+                           dtype=torch.int32, device=template.device)
+
+    def push(self, state, x) -> torch.Tensor:
+        return state + intac.bin_split(x, self._anchor(x.device))
+
+    def merge(self, a, b) -> torch.Tensor:
+        return a + b
+
+    def finalize(self, state) -> torch.Tensor:
+        return intac.bin_combine(state, self._anchor(state.device))
+
+
 class FlashAccumulator:
     """Online-softmax partials: state = (max m, denom l, weighted out o).
 
@@ -125,6 +286,79 @@ class FlashAccumulator:
     def finalize(self, state):
         _, l, o = state
         return flash_finalize(l, o)
+
+
+class CascadeAccumulator:
+    """``depth`` chained plain accumulators (the cascaded-PAC
+    construction): each push folds the element into stage 1 and each
+    stage's new value into the next, so after n pushes stage k holds
+    ``sum_i C(n-1-i + k-1, k-1) x_i`` (``algebra.cascade_weights``), and
+    a fixed combination of the stages (``algebra.cascade_poly_coeffs``)
+    gives any polynomial time-index weighting.
+
+    The state is ``(count, stage sums)``.  ``merge(a, b)`` concatenates
+    the two streams in argument order by the closed-form stage mixing
+    ``S_k = A_k + B_k + sum_{j<k} C(m+k-j-1, k-j) A_j`` with m = b's
+    count, its coefficients built in float32 as the reference builds
+    them.  ``finalize`` stacks the stages (leading axis).
+
+    >>> import torch
+    >>> acc = CascadeAccumulator(2)
+    >>> st = acc.init(torch.zeros(()))
+    >>> for v in (1.0, 10.0, 100.0):
+    ...     st = acc.push(st, torch.tensor(v))
+    >>> acc.finalize(st).tolist()               # [sum, 3*1+2*10+1*100]
+    [111.0, 123.0]
+    >>> a = acc.push(acc.init(torch.zeros(())), torch.tensor(1.0))
+    >>> b = acc.init(torch.zeros(()))
+    >>> for v in (10.0, 100.0):
+    ...     b = acc.push(b, torch.tensor(v))
+    >>> acc.finalize(acc.merge(a, b)).tolist()
+    [111.0, 123.0]
+    """
+
+    def __init__(self, depth: int):
+        if depth < 1:
+            raise ValueError(f"cascade depth must be >= 1, got {depth}")
+        self.depth = int(depth)
+
+    def init(self, template):
+        z = torch.zeros(template.shape, dtype=torch.float32,
+                        device=template.device)
+        return (torch.zeros((), dtype=torch.int32, device=template.device),
+                (z,) * self.depth)
+
+    def push(self, state, x):
+        count, sums = state
+        run = x.to(torch.float32)
+        new = []
+        for s in sums:
+            run = s + run                # stage k folds stage k-1's value
+            new.append(run)
+        return (count + 1, tuple(new))
+
+    def merge(self, a, b):
+        ca, sa = a
+        cb, sb = b
+        m = cb.to(torch.float32)
+        out = []
+        for k in range(1, self.depth + 1):
+            s = sa[k - 1] + sb[k - 1]
+            for j in range(1, k):
+                r = k - j                # C(m + r - 1, r)
+                coef = torch.ones((), dtype=torch.float32, device=m.device)
+                for t in range(r):
+                    coef = coef * (m + t)
+                # a tensor divisor: an IEEE division on every device (a
+                # CPU-scalar divisor may become a reciprocal multiply)
+                fact = torch.tensor(float(math.factorial(r)),
+                                    dtype=torch.float32, device=m.device)
+                s = s + (coef / fact) * sa[j - 1]
+            out.append(s)
+        return (ca + cb, tuple(out))
+
+    def finalize(self, state):
+        return torch.stack(state[1], dim=0)
 
 
 def _index(xs, i):

@@ -60,6 +60,19 @@ LANES_DEFAULT = 4
 #: at once; larger batches are cut into groups of blocks
 _TREE_ELEMS = 1 << 25
 
+#: raw elements the digit-plane domains (exact2, procrastinate) convert
+#: at once: every step is elementwise, so a wider stream is converted in
+#: slices of raw columns, which bounds the f32 temporaries of the
+#: exponent arithmetic (a dozen of them, each the size of a slice)
+_DOMAIN_ELEMS = 1 << 26
+
+
+def _column_slices(n: int, d: int):
+    """Raw-column ranges [c0, c1) of at most ``_DOMAIN_ELEMS`` elements."""
+    cols = max(1, _DOMAIN_ELEMS // max(1, n))
+    for c0 in range(0, d, cols):
+        yield c0, min(d, c0 + cols)
+
 
 def register_policy(cls):
     """Class decorator: instantiate and add to the policy registry."""
@@ -314,22 +327,25 @@ class Exact2Policy(Policy):
         v = values.to(torch.float32)
         n, d = v.shape
         scale = ctx
-        q = intac.quantize(v, scale)
         out = torch.empty((n, self.parts * d), dtype=torch.float32,
                           device=v.device)
-        out[:, :d] = q
-        res = v - intac.dequantize(q, scale)          # exact (Sterbenz)
-        del q
-        for k, dig in enumerate(intac.bin_digits(
-                res * scale, 0, bits=intac.RES_BIN_BITS,
-                num=intac.RES_NUM_BINS)):
-            # the reference's bin_split casts each digit to int32 (NaN ->
-            # 0, saturating).  Finite digits are integers below 2^7, so
-            # that cast, stored back as f32, is this one pass: NaN -> 0,
-            # +-Inf -> +-2^31 (the f32 value of INT32_MAX / INT32_MIN)
-            torch.nan_to_num(dig, nan=0.0, posinf=2.0 ** 31,
-                             neginf=-2.0 ** 31,
-                             out=out[:, (k + 1) * d:(k + 2) * d])
+        for c0, c1 in _column_slices(n, d):
+            vs = v[:, c0:c1]
+            q = intac.quantize(vs, scale)
+            out[:, c0:c1] = q
+            res = vs - intac.dequantize(q, scale)     # exact (Sterbenz)
+            del q
+            for k, dig in enumerate(intac.bin_digits(
+                    res * scale, 0, bits=intac.RES_BIN_BITS,
+                    num=intac.RES_NUM_BINS)):
+                # the reference's bin_split casts each digit to int32
+                # (NaN -> 0, saturating).  Finite digits are integers
+                # below 2^7, so that cast, stored back as f32, is this
+                # one pass: NaN -> 0, +-Inf -> +-2^31 (the f32 value of
+                # INT32_MAX / INT32_MIN)
+                torch.nan_to_num(dig, nan=0.0, posinf=2.0 ** 31,
+                                 neginf=-2.0 ** 31,
+                                 out=out[:, (k + 1) * d + c0:(k + 1) * d + c1])
         return out
 
     def init(self, num_segments: int, d: int, device=None):
@@ -387,8 +403,9 @@ class ProcrastinatePolicy(Policy):
         n, d = v.shape
         out = torch.empty((n, self.parts * d), dtype=torch.int32,
                           device=v.device)
-        for k, dig in enumerate(intac.bin_digits(v, ctx)):
-            out[:, k * d:(k + 1) * d] = intac.to_i32(dig)
+        for c0, c1 in _column_slices(n, d):
+            for k, dig in enumerate(intac.bin_digits(v[:, c0:c1], ctx)):
+                out[:, k * d + c0:k * d + c1] = intac.to_i32(dig)
         return out
 
     def init(self, num_segments: int, d: int, device=None):

@@ -51,6 +51,20 @@ def init_state(model) -> adamw.AdamWState:
     return adamw.init(convert.stacked_leaves(model))
 
 
+def checkpoint_state(model, opt_state: adamw.AdamWState) -> dict:
+    """The train state as the reference launcher checkpoints it,
+    ``{"params": ..., "opt": AdamWState}``, nested as the reference's
+    tree (``convert.nest``), so a snapshot's leaf keys are the
+    reference's.  It holds the live tensors: the parameters' stacked
+    leaves (of which the model's parameters are views) and the moments,
+    so ``ckpt.restore(..., inplace=True)`` into it sets the model and the
+    optimizer state."""
+    return {"params": convert.nest(convert.stacked_leaves(model)),
+            "opt": adamw.AdamWState(mu=convert.nest(opt_state.mu),
+                                    nu=convert.nest(opt_state.nu),
+                                    count=opt_state.count)}
+
+
 def make_train_step(cfg: ModelConfig, *, lr_fn: Callable,
                     moe_impl: str = "capacity", remat: bool = True,
                     clip_norm: float = 1.0, weight_decay: float = 0.1,
@@ -174,5 +188,5 @@ def make_decode_step(cfg: ModelConfig, *, moe_impl: str = "capacity",
     return dstep
 
 
-__all__ = ["init_state", "make_train_step", "make_eval_step", "make_prefill_step",
+__all__ = ["init_state", "checkpoint_state", "make_train_step", "make_eval_step", "make_prefill_step",
            "make_decode_step"]

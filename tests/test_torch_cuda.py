@@ -599,3 +599,74 @@ def test_cuda_narrow_matmul_backward_within_bf16_ulps_of_widened(out_dtype,
         bound = 2 * ulp + 2 * k * 2.0 ** -24 * terms
         err = (got.float() - want).abs()
         assert bool((err <= bound).all()), float((err - bound).max())
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_of_card_leaves_restores_bitwise(cuda, tmp_path):
+    """A tree of CUDA leaves (f32, bf16, an int32 scalar, a leaf of many
+    compression chunks) saved and restored: onto the card by default,
+    onto ``device=`` when given, and in place into other CUDA tensors."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    g = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"w": torch.randn(3000, 1000, generator=g, device=cuda),
+            "b": [torch.randn(64, generator=g, device=cuda)
+                  .to(torch.bfloat16),
+                  torch.tensor(7, dtype=torch.int32, device=cuda)]}
+    ckpt.save(tmp_path, 1, tree, extra={"next_step": 2})
+    back, manifest = ckpt.restore(tmp_path, 1, tree)
+    assert manifest["extra"]["next_step"] == 2
+    for key, leaf in ckpt.flatten(back).items():
+        want = ckpt.flatten(tree)[key]
+        assert leaf.is_cuda and leaf.dtype == want.dtype
+        assert torch.equal(leaf, want), key
+    host, _ = ckpt.restore(tmp_path, 1, tree, device="cpu")
+    assert torch.equal(host["w"], tree["w"].cpu())
+    live = {"w": torch.zeros_like(tree["w"]),
+            "b": [torch.zeros_like(tree["b"][0]),
+                  torch.zeros_like(tree["b"][1])]}
+    same, _ = ckpt.restore(tmp_path, 1, live, inplace=True)
+    assert same is live and torch.equal(live["w"], tree["w"])
+    assert torch.equal(live["b"][0], tree["b"][0]) and int(live["b"][1]) == 7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["KahanAccumulator", "LimbAccumulator",
+                                  "Limb3Accumulator", "BinAccumulator",
+                                  "CascadeAccumulator"])
+def test_cuda_accumulators_bitwise_their_cpu_run(name, cuda):
+    """Each accumulator pushed row by row on the card: every state field
+    and the finalize bitwise the same pushes on the CPU; LimbAccumulator
+    also bitwise K5 (``intac_accum``) in canonical form."""
+    import repro_torch.reduce as R
+    from repro_torch.core import intac as I
+    from repro_torch.kernels import ops
+    rng = np.random.RandomState(5)
+    x = (rng.randn(300, 70) * np.exp2(rng.randint(-10, 4, (300, 70)))
+         ).astype(np.float32)
+    arg = {"LimbAccumulator": 2.0 ** 20, "Limb3Accumulator": 2.0 ** 20,
+           "BinAccumulator": float(np.abs(x).max()),
+           "CascadeAccumulator": 3}.get(name)
+    acc = getattr(R, name)() if arg is None else getattr(R, name)(arg)
+
+    def run(t):
+        st = acc.init(t[0])
+        for row in t:
+            st = acc.push(st, row)
+        return st
+
+    xc = torch.from_numpy(x)
+    st_g, st_c = run(xc.to(cuda)), run(xc)
+
+    def parts(st):
+        out = []
+        for p in (st if isinstance(st, tuple) else (st,)):
+            out += list(p) if isinstance(p, (tuple, list)) else [p]
+        return [p for p in out if p is not None]
+    for a, b in zip(parts(st_g), parts(st_c)):
+        assert torch.equal(a.cpu(), b)
+    assert torch.equal(acc.finalize(st_g).cpu(), acc.finalize(st_c))
+    if name == "LimbAccumulator":
+        k5 = ops.intac_accum(xc.to(cuda), arg)
+        for a, b in zip(I.limbs_canonical(st_g.hi, st_g.lo),
+                        I.limbs_canonical(k5[0], k5[1])):
+            assert torch.equal(a, b)

@@ -332,22 +332,31 @@ def test_knobs_the_port_lacks_raise(smoke):
             TS.make_train_step(tcfg, lr_fn=lr)
 
 
-def test_launch_train_smoke_on_the_cpu_and_flags_that_raise():
+def test_launch_train_smoke_on_the_cpu_and_flags_that_raise(tmp_path):
     """``python -m repro_torch.launch.train --smoke --device cpu``: two
-    logged steps with a finite loss; the checkpoint, compression and
-    shard_map flags raise naming their ROADMAP items; without
-    ``--device`` it asks for CUDA."""
+    logged steps with a finite loss; with ``--ckpt-dir`` and
+    ``--ckpt-every 1`` it saves step 1 and a second run resumes past it;
+    the compression and shard_map flags raise naming their ROADMAP item;
+    without ``--device`` it asks for CUDA."""
     out = io.StringIO()
+    argv = ["--smoke", "--device", "cpu", "--steps", "2", "--batch", "4",
+            "--seq", "16", "--log-every", "1"]
     with contextlib.redirect_stdout(out):
-        loss = TL.main(["--smoke", "--device", "cpu", "--steps", "2",
-                        "--batch", "4", "--seq", "16", "--log-every", "1"])
+        loss = TL.main(argv)
     lines = out.getvalue().splitlines()
     assert [ln.split()[:2] for ln in lines[:2]] == [["step", "0"],
                                                     ["step", "1"]]
     assert lines[-1].startswith("done: 2 steps") and np.isfinite(loss)
-    for flags, item in ((["--ckpt-dir", "x"], "item 3"),
-                        (["--ckpt-every", "5"], "item 3"),
-                        (["--compress-bits", "8"], "item 5"),
+    ckpt = ["--ckpt-dir", str(tmp_path), "--ckpt-every", "1"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert TL.main(argv + ckpt) == loss
+        assert TL.main(argv + ckpt) is None
+    lines = out.getvalue().splitlines()
+    assert "[ckpt] saved step 1" in lines
+    assert lines[-2:] == ["[restore] resumed from step 1 -> next 2",
+                          "done: 0 steps"]
+    for flags, item in ((["--compress-bits", "8"], "item 5"),
                         (["--microbatches", "2"], "item 5")):
         with pytest.raises(NotImplementedError, match=item):
             TL.main(["--smoke", "--device", "cpu", "--steps", "1"] + flags)
