@@ -16,7 +16,9 @@ training path: stablelm-1.6b at full width through the port's train step
 (the JugglePAC gradient juggler; microbatch gradients and the clip norm
 on K1; AdamW), then its train state checkpointed and resumed
 (``repro_torch.ckpt``), and the streaming accumulators at the INTAC
-shape.  All data is drawn from ``--seed``.  Phases, in order; any
+shape.  Last, mixtral-8x22b at full width (8 of its 56 layers) served
+through the same ``Engine`` on sliding-window ring caches, its experts
+through the dense MoE.  All data is drawn from ``--seed``.  Phases, in order; any
 failure exits nonzero:
 
 1. device — the card's name and power limit, as nvidia-smi prints them;
@@ -113,7 +115,25 @@ failure exits nonzero:
    K5's limbs in canonical form; ``Limb3Accumulator`` and
    ``BinAccumulator`` bitwise their CPU runs, state and finalize;
    ``KahanAccumulator`` and ``CascadeAccumulator(2)`` within their
-   stated bounds of float64; each accumulator's ms (CUDA events).
+   stated bounds of float64; each accumulator's ms (CUDA events);
+14. serve-moe — mixtral-8x22b's ``CONFIG`` at full width cut to 8 of 56
+   layers (random weights from the seed, 40.87 GB) through
+   ``Engine(max_len=6144, max_batch=8)`` on f32 rings of 4,096 slots
+   (whole-prompt prefill, the dense MoE), 8 greedy requests of 32 new
+   tokens (six prompts of 64-768 tokens, one of 4,096 and one of 5,120):
+   every result complete and in order; K2 launched once a layer at every
+   decode step and K1 once (counts set to 0 just before the run, read
+   just after); K2 bitwise its plain version on the engine's own ring
+   and query at a decode step of the middle layer after the 4,096
+   request's ring has wrapped; ``router_topk`` with
+   ``router_norm_policy="exact"`` over the 5,120 prefill's router stream
+   through K1 bitwise ``blocked``; ``combine_segsum`` at the decode shape
+   (16 rows x 6,144, 8 tokens) through K1 bitwise ``blocked``; the 4,096
+   request alone gives bitwise its batched tokens; the 5,120 request's
+   last decode logits within ``MOE_LOGIT_BOUND`` of a cache-free
+   windowed forward; timings: a decode step against the weights' bound,
+   the whole-prompt prefills at 4,096 and 5,120, generated tokens/s, K2
+   per layer against its bound and SDPA, peak memory.
 
 Times are CUDA-event medians after a warm-up (plain versions: one
 host-clock run; K1 on the train path: the sum over a step's launches,
@@ -206,6 +226,30 @@ CKPT_KEEP = 2
 #: host's 8 cores, and the script 633-800 s of its 1,200; at 4 the state
 #: is 6.2 GB, 4.1 of them the full-width embedding and head leaves
 CKPT_LAYERS = 4
+#: the serve-moe phase: mixtral-8x22b's published CONFIG (src/repro_torch/
+#: configs/mixtral_8x22b.py, hf:mistralai/Mixtral-8x22B-v0.1) at full
+#: width, cut to 8 of its 56 layers (one layer's 2,504,011,776 bf16
+#: parameters and f32 router take 5.008 GB, all 56 take 281 GB: 8 take
+#: 40.87 GB with the embedding and head); 8 slots of 6,144 context on
+#: f32 rings of 4,096 slots (2.15 GB); 8 greedy requests of 32 new
+#: tokens: six prompts in [64, 768], one of 4,096 tokens (it fills the
+#: ring, so every decode step overwrites its oldest slot) and one of
+#: 5,120 (it wraps in the prefill packing); both long prompts are
+#: multiples of attn_qchunk (1,024), so their prefill takes the chunked
+#: attention
+MOE_ARCH, MOE_LAYERS, MOE_LEN, MOE_SLOTS, MOE_NEW = \
+    "mixtral-8x22b", 8, 6144, 8, 32
+MOE_PROMPTS, MOE_LONG = (64, 768), (4096, 5120)
+#: decode step whose K2 inputs are captured in the middle layer
+MOE_TAP_STEP = 24
+#: max |decode logits - cache-free forward logits| over the latter's std,
+#: for the 5,120-token request's last decode step: the two paths round
+#: bf16 activations after different f32 sums (K2's slot-ordered splits of
+#: the ring against one windowed softmax per 1,024-query chunk; 8-row
+#: expert products against 6,144-row ones), a few bf16 ulps (2^-8
+#: relative) a layer over 8 layers; as phase 10's bound, a wrong ring
+#: slot, position or window moves the logits by about their whole spread
+MOE_LOGIT_BOUND = 0.25
 
 
 def fail(msg: str) -> int:
@@ -769,8 +813,6 @@ def serve_phase(seed, dev, smi):
     from repro_torch.kernels import jugglepac_segsum as K
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
-    from repro_torch.reduce import get_policy, mask_out_of_range, \
-        plan_program
     from repro_torch.serve import Engine, Request
     fd = importlib.import_module("repro_torch.kernels.flash_decode")
 
@@ -950,47 +992,10 @@ def serve_phase(seed, dev, smi):
     tap.update(q=None, k=None, v=None, out=None)
 
     # K1 at the mean_logprob shape: the run's (step x slot) stream
-    vals = torch.cat(stream["vals"])[:, None]
-    ids = torch.from_numpy(np.concatenate(stream["ids"])).to(dev)
-    nseg = len(requests)
-    pol = get_policy("compensated")
-    mids = mask_out_of_range(ids, nseg)
-    dom, _ = pol.prepare(torch.where((mids >= 0)[:, None], vals,
-                                     torch.zeros((), device=dev)), len(ids))
-    prog = plan_program(pol, num_segments=nseg, domain_width=dom.shape[1],
-                        block_size=512, op="mean")
-    pad = (-len(ids)) % 512
-    k1_plain_ms, k1_plain = host_ms(lambda: K.segsum_policy_torch(
-        torch.cat([dom, dom.new_zeros((pad, dom.shape[1]))]),
-        torch.cat([mids, mids.new_full((pad,), -1)]), nseg, policy=pol,
-        program=prog, block_rows=512))
-    k1 = K.segsum_policy_cuda(dom, mids, nseg, policy=pol, program=prog,
-                              block_rows=512)
-    ok, k1_err = same(tuple(k1), tuple(k1_plain))
-    k1_ms = cuda_ms(lambda: K.segsum_policy_cuda(
-        dom, mids, nseg, policy=pol, program=prog, block_rows=512), REPS)
-    kept = int((mids >= 0).sum())
-    k1_bytes = len(ids) * 4 + kept * dom.shape[1] * 4 \
-        + sum(c.numel() * 4 for c in k1)
-    k1_bound = max(k1_bytes / HBM_BYTES_PER_S,
-                   kept * dom.shape[1] / FP32_OPS_PER_S) * 1e3
-    print(f"check K1 compensated at the mean_logprob shape ({len(ids)} "
-          f"rows, {kept} kept, {nseg} sets): max|kernel-plain|={k1_err:g} "
-          f"{'bitwise' if ok else 'DIFFER'}; kernel {k1_ms:.4f} ms, bound "
-          f"{k1_bound:.4f} ms, plain {k1_plain_ms:.1f} ms | {smi}",
-          flush=True)
-    check(ok, "serve: K1 differs from its plain version at the "
-              "mean_logprob shape")
-    entries.append({
-        "name": "segsum_policy_kernel<compensated>/serve", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/segsum.cu",
-        "replaces": "src/repro/kernels/jugglepac_segsum.py:77",
-        "launches": k1_launches, "max_abs_err": k1_err, "ms": k1_ms,
-        "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-        "bound_by": ("bytes" if k1_bytes / HBM_BYTES_PER_S
-                     >= kept * dom.shape[1] / FP32_OPS_PER_S
-                     else "operations"),
-        "library_ms": None})
+    entry = k1_entry("serve", torch.cat(stream["vals"])[:, None],
+                     torch.from_numpy(np.concatenate(stream["ids"])).to(dev),
+                     len(requests), "compensated", smi, op="mean")
+    entries.append(dict(entry, launches=k1_launches))
     del eng
     torch.cuda.empty_cache()
 
@@ -1843,6 +1848,355 @@ def accum_phase(seed, dev, smi):
     torch.cuda.empty_cache()
 
 
+def k1_entry(name, vals, ids, nseg, tier, smi, library=None, op="sum"):
+    """K1 on one stream (``vals`` (N, D) f32, ``ids`` (N,) int32) under
+    ``tier``, as the front door launches it for ``op``: its domain
+    prepared, the kernel bitwise its plain version (checked), both timed
+    beside ``library()`` (one PyTorch call computing the same sums, where
+    there is one) and the bound; returns the kernel-table entry with
+    ``launches`` 0 (the caller sets the main path's count)."""
+    import torch
+    from repro_torch.kernels import jugglepac_segsum as K
+    from repro_torch.reduce import get_policy, mask_out_of_range, \
+        plan_program
+    pol = get_policy(tier)
+    dev = vals.device
+    mids = mask_out_of_range(ids, nseg)
+    dom, _ = pol.prepare(torch.where((mids >= 0)[:, None], vals,
+                                     torch.zeros((), device=dev)), len(ids))
+    prog = plan_program(pol, num_segments=nseg, domain_width=dom.shape[1],
+                        block_size=512, op=op)
+    pad = (-len(ids)) % 512
+    plain_ms, plain = host_ms(lambda: K.segsum_policy_torch(
+        torch.cat([dom, dom.new_zeros((pad, dom.shape[1]))]),
+        torch.cat([mids, mids.new_full((pad,), -1)]), nseg, policy=pol,
+        program=prog, block_rows=512))
+    kern = K.segsum_policy_cuda(dom, mids, nseg, policy=pol, program=prog,
+                                block_rows=512)
+    ok, err = same(tuple(kern), tuple(plain))
+    ms = cuda_ms(lambda: K.segsum_policy_cuda(
+        dom, mids, nseg, policy=pol, program=prog, block_rows=512), REPS)
+    lib_ms = None if library is None else cuda_ms(library, REPS)
+    kept = int((mids >= 0).sum())
+    bytes_ = len(ids) * 4 + kept * dom.shape[1] * 4 \
+        + sum(c.numel() * 4 for c in kern)
+    ops_ = kept * dom.shape[1]
+    bound = max(bytes_ / HBM_BYTES_PER_S, ops_ / FP32_OPS_PER_S) * 1e3
+    print(f"check K1 {tier} at the {name} shape ({tuple(vals.shape)}, "
+          f"{nseg} label(s)): max|kernel-plain|={err:g} "
+          f"{'bitwise' if ok else 'DIFFER'}; kernel {ms:.4f} ms, bound "
+          f"{bound:.4f} ms, plain {plain_ms:.1f} ms, library "
+          f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} | {smi}",
+          flush=True)
+    check(ok, f"{name}: K1 differs from its plain version")
+    return {"name": f"segsum_policy_kernel<{tier}>/{name}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/segsum.cu",
+            "replaces": "src/repro/kernels/jugglepac_segsum.py:77",
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": ("bytes" if bytes_ / HBM_BYTES_PER_S
+                         >= ops_ / FP32_OPS_PER_S else "operations"),
+            "library_ms": lib_ms}
+
+
+def serve_moe_phase(seed, dev, smi):
+    """Phase 14: mixtral-8x22b at full width, cut to ``MOE_LAYERS``
+    layers, served through the port's ``Engine`` on ring caches; returns
+    the kernel entries of K2 on the ring and of K1 on the router's
+    normalization and on ``combine_segsum``."""
+    import dataclasses
+    import gc
+    import importlib
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import jugglepac_segsum as K
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.serve import Engine, Request
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 21)
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = M.param_bytes(model) / 1e9
+    host = torch.Generator()
+    host.manual_seed(seed + 22)
+    lens = torch.randint(MOE_PROMPTS[0], MOE_PROMPTS[1] + 1,
+                         (MOE_SLOTS - len(MOE_LONG),),
+                         generator=host).tolist() + list(MOE_LONG)
+    requests = [Request(prompt=torch.randint(1, cfg.vocab, (n,),
+                                             generator=host).tolist(),
+                        max_new_tokens=MOE_NEW) for n in lens]
+    last = MOE_SLOTS - 1                 # the 5,120-token request
+    print(f"serve-moe: {cfg.name} at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, {cfg.moe.num_experts}"
+          f" experts top-{cfg.moe.top_k}, d_ff {cfg.moe.d_ff_expert}, vocab "
+          f"{cfg.vocab}, window {cfg.window}, {cfg.dtype}), {cfg.n_layers} "
+          f"of 56 layers: {sum(p.numel() for p in model.parameters())} "
+          f"parameters ({weights_gb:.3f} GB) drawn in {init_s:.2f} s "
+          f"({held / 2 ** 30:.2f} GiB held before); {MOE_SLOTS} slots x "
+          f"{MOE_LEN} context on rings of {cfg.window} slots; prompts "
+          f"{lens}, {MOE_NEW} new tokens each, greedy", flush=True)
+
+    def engine():
+        return Engine(cfg, model, max_len=MOE_LEN, max_batch=MOE_SLOTS,
+                      logprob_policy="compensated", device=dev)
+
+    # taps: decode steps seen by layer 0; the middle layer's K2 inputs and
+    # output at one step; the decode logits; the MoE input of the middle
+    # layer in the 5,120-token prefill and at the tapped decode step
+    layer = cfg.n_layers // 2
+    tap = {"steps": 0, "mid": 0, "logits": None}
+
+    def count_steps(mod, args, out):
+        tap["steps"] += 1
+
+    def capture(mod, args, out):
+        tap["mid"] += 1
+        if tap["mid"] == MOE_TAP_STEP:
+            q, k, v, kv_len, sc = args
+            tap.update(q=q.clone(), k=k.clone(), v=v.clone(),
+                       kv_len=kv_len.clone(), sc=sc, out=out.clone())
+
+    def moe_input(mod, args):
+        x = args[0]
+        if x.shape[1] == MOE_LONG[-1]:
+            tap["prefill_x"] = x.clone()
+        elif x.shape[1] == 1 and tap["mid"] == MOE_TAP_STEP \
+                and "decode_x" not in tap:
+            tap["decode_x"] = x.clone()
+
+    def last_logits(mod, args, kwargs, out):
+        if kwargs.get("mode") == "decode" and args[0].shape[1] == 1:
+            tap["logits"] = out[0][:, 0].clone()
+
+    hooks = [model.blocks[0].core.decode_attn.register_forward_hook(
+                 count_steps),
+             model.blocks[layer].core.decode_attn.register_forward_hook(
+                 capture),
+             model.blocks[layer].mlp.register_forward_pre_hook(moe_input),
+             model.register_forward_hook(last_logits, with_kwargs=True)]
+
+    # the main path: counts set to 0 just before, read just after
+    eng = engine()
+    slot_of = {}
+
+    def on_step(e, step):
+        slot_of.update((tr.rid, tr.slot)
+                       for tr in e.scheduler.in_state("decode"))
+
+    rids = [eng.submit(r) for r in requests]
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.run(on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    for hk in hooks:
+        hk.remove()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = tap["steps"]
+    new = sum(len(r.tokens) - r.prompt_len for r in results)
+    print(f"main serve-moe: {len(results)} results in order "
+          f"{[r.rid for r in results]}, {new} tokens, {steps} decode steps "
+          f"in {wall * 1e3:.1f} ms; launches {launches} (K2 want {steps} x "
+          f"{cfg.n_layers}, K1 want 1); peak memory {peak_gb:.2f} GiB; "
+          f"mean_logprob {[round(r.mean_logprob, 4) for r in results]}",
+          flush=True)
+    check([r.rid for r in results] == rids
+          and all(len(r.tokens) - r.prompt_len == MOE_NEW
+                  and r.tokens[:r.prompt_len] == q.prompt
+                  and all(0 <= t < cfg.vocab for t in r.tokens)
+                  and math.isfinite(r.mean_logprob)
+                  for r, q in zip(results, requests)),
+          "serve-moe: results out of order, short, out of the vocabulary "
+          "or with a non-finite mean_logprob")
+    check(steps >= MOE_NEW - 1
+          and launches == {"K1": 1, "K2": steps * cfg.n_layers, "K3": 0,
+                           "K4": 0, "K5": 0},
+          f"serve-moe: launches {launches} for {steps} decode steps")
+
+    # K2 against its plain version on the engine's own ring and query, at
+    # a step where the 4,096-token request's ring has wrapped
+    q, k, v, kv_len, sc = (tap[x] for x in ("q", "k", "v", "kv_len", "sc"))
+    qf = q.float().contiguous()
+    bias = ops.length_bias(kv_len, k.shape[1], None, dev)
+    plain_ms, plain = host_ms(lambda: fd.flash_decode_torch(
+        qf, k, v, bias, sm_scale=sc, block_kv=512))
+    kern = fd.flash_decode_cuda(qf, k, v, bias, sm_scale=sc, block_kv=512)
+    ok, k2_err = same(kern, plain)
+    ok_engine = torch.equal(kern, tap["out"])
+    lengths_then = [lens[r] + MOE_TAP_STEP - 1 for r in range(MOE_SLOTS)]
+    print(f"check K2 on the ring (layer {layer}, decode step "
+          f"{MOE_TAP_STEP}: cache {tuple(k.shape)} {k.dtype}, kv_len "
+          f"{kv_len.tolist()}, request lengths {lengths_then}): "
+          f"max|kernel-plain|={k2_err:g} {'bitwise' if ok else 'DIFFER'}; "
+          f"the engine's own output {'bitwise' if ok_engine else 'DIFFER'}",
+          flush=True)
+    check(int(kv_len.max()) == cfg.window and ok and ok_engine,
+          "serve-moe: K2 differs from its plain version on the wrapped ring")
+    k2_ms = cuda_ms(lambda: fd.flash_decode_cuda(
+        qf, k, v, bias, sm_scale=sc, block_kv=512), REPS)
+    rows = int(kv_len.sum())
+    kh, d = k.shape[2], k.shape[3]
+    h = q.shape[1]
+    k2_bytes = rows * (2 * kh * d * 4 + 4) + 2 * q.numel() * 4
+    k2_ops = rows * h * (4 * d + 1)
+    k2_bound = max(k2_bytes / HBM_BYTES_PER_S,
+                   k2_ops / FP32_OPS_PER_S) * 1e3
+    k4 = k.permute(0, 2, 1, 3).contiguous()
+    v4 = v.permute(0, 2, 1, 3).contiguous()
+    mask = bias[:, None, None, :]
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qf[:, :, None], k4, v4, attn_mask=mask, scale=sc, enable_gqa=True),
+        REPS)
+    del k4, v4, mask
+    entries = [{
+        "name": "flash_decode_kernel<dense>/serve-moe-ring",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:72",
+        "launches": launches["K2"], "max_abs_err": k2_err, "ms": k2_ms,
+        "plain_ms": plain_ms, "bound_ms": k2_bound,
+        "bound_by": ("bytes" if k2_bytes / HBM_BYTES_PER_S
+                     >= k2_ops / FP32_OPS_PER_S else "operations"),
+        "library_ms": sdpa_ms}]
+
+    # timings on the engine's final state: every slot active at its
+    # length, each call writing the same ring slot (the caches not kept)
+    lengths = eng._caches[0]["core"].length[0].clone()
+    toks = torch.tensor([[r.tokens[-1]] for r in results], device=dev)
+    active = torch.ones(MOE_SLOTS, dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        step_ms = cuda_ms(lambda: M.decode_step(
+            model, toks, eng._caches, lengths, active=active,
+            moe_impl="dense"), REPS)
+        prefill_ms = {}
+        for i in (MOE_SLOTS - 2, last):
+            ptoks = torch.tensor([requests[i].prompt], device=dev)
+            prefill_ms[lens[i]] = cuda_ms(
+                lambda: eng._classic_prefill(i, ptoks), 3)
+    print(f"time serve-moe: decode step at B={MOE_SLOTS} {step_ms:.3f} ms "
+          f"(bound {weights_gb * 1e9 / HBM_BYTES_PER_S * 1e3:.3f} ms: the "
+          f"weights once over 3.35 TB/s; {MOE_SLOTS * 1e3 / step_ms:.1f} "
+          f"tokens/s decoding) | whole-prompt prefill "
+          + ", ".join(f"{n} tokens {ms:.1f} ms" for n, ms in
+                      prefill_ms.items())
+          + f" | the run: {new} tokens in {wall * 1e3:.1f} ms "
+          f"({new / wall:.1f} generated tokens/s, prefill included) | K2 "
+          f"per layer per step {k2_ms:.4f} ms, bound {k2_bound:.4f} ms "
+          f"({k2_bytes / 1e6:.2f} MB: the live ring rows), plain "
+          f"{plain_ms:.1f} ms, SDPA {sdpa_ms:.4f} ms | weights "
+          f"{weights_gb:.3f} GB, rings {M.cache_bytes(eng._caches) / 1e9:.3f}"
+          f" GB (f32 k/v), peak {peak_gb:.2f} GiB | {smi}", flush=True)
+    del q, k, v, qf, bias, kern, plain, eng
+    tap.update(q=None, k=None, v=None, out=None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # K1 on the router's normalization: mixtral's router with
+    # router_norm_topk and the exact policy over the 5,120-token prefill's
+    # router stream of the middle layer (k = 2 rows x 5,120, one label)
+    router = model.blocks[layer].mlp.router
+    m = dataclasses.replace(cfg.moe, router_norm_topk=True,
+                            router_norm_policy="exact")
+    xs = tap.pop("prefill_x").reshape(-1, cfg.d_model)
+    K.LAUNCHES = 0
+    w_k1, idx_k1, _ = moe.router_topk(router, xs, m)
+    k1_count = K.LAUNCHES
+    w_bl, idx_bl, _ = moe.router_topk(router, xs, m, backend="blocked")
+    ok = torch.equal(idx_k1, idx_bl) and torch.equal(w_k1, w_bl)
+    print(f"check router_topk with router_norm_policy='exact' over the "
+          f"{xs.shape[0]}-token prefill's router stream: K1 launched "
+          f"{k1_count} time(s); weights through K1 "
+          f"{'bitwise' if ok else 'DIFFER from'} blocked's", flush=True)
+    check(ok and k1_count == 1, "serve-moe: the router's normalization "
+                                "through K1 differs from blocked's")
+    raw = moe.router_topk(router, xs, cfg.moe)[0]
+    wt = raw.T.contiguous()
+    entries.append(k1_entry("router-norm", wt, torch.zeros(
+        wt.shape[0], dtype=torch.int32, device=dev), 1, "exact", smi,
+        lambda: torch.sum(wt, 0)))
+
+    # K1 on combine_segsum at the decode shape: the middle layer's
+    # gate-weighted expert rows at the tapped step (8 tokens x top-2)
+    xd = tap.pop("decode_x").reshape(-1, cfg.d_model)
+    t = xd.shape[0]
+    w, idx, _ = moe.router_topk(router, xd, cfg.moe)
+    mlp = model.blocks[layer].mlp
+    with torch.no_grad():
+        ye = moe._expert_ffn(mlp, xd.expand(cfg.moe.num_experts, t,
+                                            cfg.d_model))
+    tok = torch.arange(t, device=dev)[:, None].expand_as(idx)
+    rows_ = (ye[idx, tok].float() * w[..., None]).reshape(-1, cfg.d_model)
+    ids = tok.reshape(-1).to(torch.int32).contiguous()
+    K.LAUNCHES = 0
+    got = moe.combine_segsum(rows_, ids, t)
+    k1_count = K.LAUNCHES
+    ok = torch.equal(got, moe.combine_segsum(rows_, ids, t,
+                                             backend="blocked"))
+    print(f"check combine_segsum at the decode shape ({tuple(rows_.shape)},"
+          f" {t} tokens): K1 launched {k1_count} time(s), "
+          f"{'bitwise' if ok else 'DIFFERS from'} blocked", flush=True)
+    check(ok and k1_count == 1, "serve-moe: combine_segsum through K1 "
+                                "differs from blocked")
+    entries.append(k1_entry("combine-segsum", rows_, ids, t, "fast", smi,
+                            lambda: torch.zeros(
+                                (t, cfg.d_model), device=dev).index_add_(
+                                    0, ids, rows_)))
+    del xs, xd, ye, rows_, raw, wt
+
+    # batch independence: the 4,096-token request alone in a fresh Engine
+    i = MOE_SLOTS - 2
+    alone = engine().generate([requests[i]])[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    same_toks = alone.tokens == results[i].tokens
+    print(f"check request {i} (prompt {lens[i]}) alone vs in the batch: "
+          f"tokens {'bitwise' if same_toks else 'DIFFER'}", flush=True)
+    check(same_toks, f"serve-moe: request {i} depends on its batch")
+
+    # the 5,120-token request's last decode logits against a cache-free
+    # forward over its tokens with the window mask, padded to 6,144
+    # tokens (causal: the padding is never seen) so that its attention
+    # takes the chunked path
+    seq = results[last].tokens[:-1]
+    pad = -len(seq) % cfg.attn_qchunk
+    with torch.no_grad():
+        full = M.forward(model, tokens=torch.tensor(
+            [seq + [0] * pad], device=dev), mode="train",
+            moe_impl="dense")[0]
+    ref = full[0, len(seq) - 1]
+    del full
+    got = tap["logits"][slot_of[last]]
+    rel = float((got - ref).abs().max() / ref.std())
+    agree = int(got[:cfg.vocab].argmax()) == int(ref[:cfg.vocab].argmax())
+    print(f"check request {last}'s last decode step (position "
+          f"{len(seq) - 1}, slot {slot_of[last]}) vs a cache-free forward "
+          f"over its {len(seq)} tokens (+{pad} padding): max|diff| / "
+          f"std(logits) = {rel:.5f} (bound {MOE_LOGIT_BOUND}), std "
+          f"{float(ref.std()):.4f}, argmax {'agrees' if agree else 'differs'}"
+          f" | {smi}", flush=True)
+    check(bool(torch.isfinite(got).all()) and rel <= MOE_LOGIT_BOUND,
+          "serve-moe: decode logits outside the bound of the cache-free "
+          "forward")
+    del model, results, tap
+    gc.collect()
+    torch.cuda.empty_cache()
+    return entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2135,6 +2489,9 @@ def main(argv=None) -> int:
           flush=True)
     accum_phase(args.seed, dev, smi)
     print(f"elapsed after phase 13: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    kernels += serve_moe_phase(args.seed, dev, smi)
+    print(f"elapsed after phase 14: {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -115,20 +115,23 @@ def nest(leaves: Mapping[str, torch.Tensor]) -> dict:
 
 
 def params_from_numpy(cfg: ModelConfig, tree, *, device=None) -> LM:
-    """An ``LM`` of ``cfg`` holding the reference tree's values, cast to
-    ``cfg.dtype``, on ``device`` (None means CUDA)."""
+    """An ``LM`` of ``cfg`` holding the reference tree's values, each cast
+    to its parameter's dtype (``cfg.dtype``; an MoE router stays
+    float32), on ``device`` (None means CUDA)."""
     dev = resolve_device(device)
-    dtype = getattr(torch, cfg.dtype)
     per = len(cfg.period)
+    model = LM(cfg, device="meta")
+    dtypes = {n: p.dtype for n, p in model.named_parameters()}
 
-    def tensor(a):
+    def tensor(name, a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            device=dev, dtype=dtype)
+            device=dev, dtype=dtypes.get(name, torch.float32))
 
     state = {}
     for path, leaf in _leaves({k: v for k, v in tree.items()
                                if k != "blocks"}):
-        state[".".join(path)] = tensor(leaf)
+        name = ".".join(path)
+        state[name] = tensor(name, leaf)
     for j, block in enumerate(tree["blocks"]):
         for path, leaf in _leaves(block):
             arr = np.asarray(leaf, dtype=np.float32)
@@ -137,9 +140,8 @@ def params_from_numpy(cfg: ModelConfig, tree, *, device=None) -> LM:
                                  f"axis {arr.shape[0]}, want n_periods="
                                  f"{cfg.n_periods}")
             for i in range(cfg.n_periods):
-                state[".".join(("blocks", str(i * per + j)) + path)] = \
-                    tensor(arr[i])
-    model = LM(cfg, device="meta")
+                name = ".".join(("blocks", str(i * per + j)) + path)
+                state[name] = tensor(name, arr[i])
     model.load_state_dict(state, strict=True, assign=True)
     # serving's parameters take no gradient; the train step switches it on
     return model.requires_grad_(False)

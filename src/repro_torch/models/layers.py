@@ -12,9 +12,15 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
 
 NEG = -1e30
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -76,6 +82,15 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _matmul(x, w, torch.float32)
 
 
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (E, m, k) @ b (E, k, n) summed in float32, as float32: the
+    batched form of ``matmul_f32`` (cuBLAS takes two narrow operands of
+    one dtype as they are; elsewhere they are widened first, exactly)."""
+    if a.is_cuda and a.dtype == b.dtype and a.dtype != torch.float32:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
 def dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """x (..., d) @ w (d, f) with float32 accumulation, rounded once to
     x's dtype."""
@@ -105,6 +120,17 @@ def swiglu(p, x: torch.Tensor) -> torch.Tensor:
     """``p`` has ``wi``, ``wg`` (d, d_ff) and ``wo`` (d_ff, d)."""
     h = F.silu(dense(p.wg, x).float()).to(x.dtype)
     return dense(p.wo, h * dense(p.wi, x))
+
+
+class SwiGLU(nn.Module):
+    def __init__(self, d: int, d_ff: int, dtype, device):
+        super().__init__()
+        self.wi = _param((d, d_ff), dtype, device)
+        self.wg = _param((d, d_ff), dtype, device)
+        self.wo = _param((d_ff, d), dtype, device)
+
+    def forward(self, x):
+        return swiglu(self, x)
 
 
 def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:

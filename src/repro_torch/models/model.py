@@ -1,23 +1,27 @@
 """The language model: init, full-sequence forward, prefill and decode for
-the dense-attention architectures.
+the GQA-attention architectures, dense or with experts.
 
 The PyTorch counterpart of the reference's ``repro.models.model``, written
 as ``nn.Module``s: ``LM`` holds the embedding, one ``Block`` per layer
-(attention, then a SwiGLU or GELU MLP, each behind an rmsnorm) and the
-head.  The reference stacks each period position's parameters on a leading
+(attention, then a SwiGLU, GELU or mixture-of-experts MLP, each behind an
+rmsnorm) and the head.  The reference stacks each period position's parameters on a leading
 ``n_periods`` axis and scans over it; here the layers are a plain loop
 (``_run_stack``), layer ``i * len(period) + j`` being period ``i``'s
 position ``j``.  The caches keep the reference's layout: one ``KVCache``
 per period position with a leading ``n_periods`` axis, so each layer's
-slice is contiguous.
+slice is contiguous; a sliding-window model's caches are rings of
+``cfg.window`` slots (``attention``).  ``moe_impl`` picks the MoE layers'
+dispatch (``moe.moe_apply``: ``capacity``, the default, or ``dense``, the
+serving engine's), and ``aux`` is their load-balancing loss, summed over
+the layers.
 
 ``loss_fn`` is the training objective (next-token cross-entropy in
 float32, sequence-chunked as the reference does); its gradients come from
 torch autograd, ``remat`` recomputing each block in the backward.
 
-The port runs one architecture family: GQA attention (MHA included) with a
-dense KV cache and SwiGLU/GELU/no MLP.  A configuration that needs more
-raises ``NotImplementedError`` naming what is missing (``unsupported``).
+The port runs GQA attention (MHA included) with a dense or a ring KV cache
+and a SwiGLU, GELU, MoE or no MLP.  A configuration that needs more raises
+``NotImplementedError`` naming what is missing (``unsupported``).
 """
 
 from __future__ import annotations
@@ -30,11 +34,10 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from . import attention as attn
+from . import moe as moe_mod
 from .config import BlockSpec, ModelConfig
-from .layers import (embed_lookup, gelu_mlp, matmul_f32, rmsnorm,
-                     rope_tables, swiglu)
-
-_param = attn._param
+from .layers import (SwiGLU, _param, embed_lookup, gelu_mlp, matmul_f32,
+                     rmsnorm, rope_tables)
 
 
 def unsupported(cfg: ModelConfig) -> List[str]:
@@ -42,13 +45,9 @@ def unsupported(cfg: ModelConfig) -> List[str]:
     missing = []
     if cfg.attn_type == "mla":
         missing.append("mla (latent attention)")
-    if cfg.window is not None:
-        missing.append("ring (window) caches")
     for kind in ("mamba", "mlstm", "slstm"):
         if any(sp.kind == kind for sp in cfg.period):
             missing.append(kind)
-    if any(sp.mlp == "moe" for sp in cfg.period):
-        missing.append("moe")
     if cfg.is_encdec:
         missing.append("enc-dec")
     if cfg.embed_inputs:
@@ -63,23 +62,13 @@ def check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: the PyTorch port has no {', '.join(missing)} yet; "
-            "it runs dense GQA attention models (e.g. stablelm-1.6b)")
+            "it runs GQA attention models, dense or with experts, on "
+            "dense or ring caches (e.g. stablelm-1.6b, mixtral-8x22b)")
 
 
 # ---------------------------------------------------------------------------
 # modules
 # ---------------------------------------------------------------------------
-
-
-class SwiGLU(nn.Module):
-    def __init__(self, d: int, d_ff: int, dtype, device):
-        super().__init__()
-        self.wi = _param((d, d_ff), dtype, device)
-        self.wg = _param((d, d_ff), dtype, device)
-        self.wo = _param((d_ff, d), dtype, device)
-
-    def forward(self, x):
-        return swiglu(self, x)
 
 
 class GeluMLP(nn.Module):
@@ -100,15 +89,19 @@ class Block(nn.Module):
         self.cfg, self.spec = cfg, spec
         self.norm1 = _param((cfg.d_model,), dtype, device)
         self.core = attn.GQA(cfg, dtype, device)
-        if spec.mlp != "none":
+        if spec.mlp == "moe":
+            self.norm2 = _param((cfg.d_model,), dtype, device)
+            self.mlp = moe_mod.MoE(cfg, dtype, device)
+        elif spec.mlp != "none":
             self.norm2 = _param((cfg.d_model,), dtype, device)
             mlp = SwiGLU if spec.mlp == "swiglu" else GeluMLP
             self.mlp = mlp(cfg.d_model, cfg.d_ff, dtype, device)
 
     def forward(self, x, *, positions, mode, cache=None, active=None,
-                rope=None):
+                rope=None, moe_impl: str = "capacity"):
         return _apply_block(self, x, self.cfg, positions=positions,
-                            mode=mode, cache=cache, active=active, rope=rope)
+                            mode=mode, cache=cache, active=active, rope=rope,
+                            moe_impl=moe_impl)
 
 
 class LM(nn.Module):
@@ -130,20 +123,21 @@ class LM(nn.Module):
                                   device)
 
     def hidden(self, tokens, *, positions, mode, caches=None, active=None,
-               remat: bool = False):
+               remat: bool = False, moe_impl: str = "capacity"):
         x = embed_lookup(self.embed, tokens)
         x, new_caches, aux = _run_stack(self, x, positions=positions,
                                         mode=mode, caches=caches,
-                                        active=active, remat=remat)
+                                        active=active, remat=remat,
+                                        moe_impl=moe_impl)
         x = rmsnorm(self.final_norm, x, self.cfg.norm_eps,
                     policy=self.cfg.norm_reduce_policy)
         return x, new_caches, aux
 
     def forward(self, tokens, *, positions, mode: str = "train",
-                caches=None, active=None):
+                caches=None, active=None, moe_impl: str = "capacity"):
         x, new_caches, aux = self.hidden(tokens, positions=positions,
                                          mode=mode, caches=caches,
-                                         active=active)
+                                         active=active, moe_impl=moe_impl)
         logits = matmul_f32(x, _lm_head(self))
         return logits, new_caches, aux
 
@@ -157,8 +151,9 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
                 = None, device=None) -> LM:
     """A model of ``cfg`` with random weights drawn from ``generator``, as
     the reference draws them: the embedding N(0, 0.02^2), each projection
-    N(0, 1/d_in), norms ones; drawn in float32, then cast to
-    ``cfg.dtype``.  ``device=None`` means CUDA (``resolve_device``);
+    N(0, 1/d_in) (an MoE router too, kept float32), the experts' ``wi``
+    and ``wg`` N(0, 1/d) and ``wo`` N(0, 1/(f * v)) (``_init_scale``),
+    norms ones; drawn in float32, then cast to the parameter's dtype.  ``device=None`` means CUDA (``resolve_device``);
     ``device="meta"`` gives the shapes alone and allocates nothing (no
     generator needed).  The draws are made on the generator's device, so
     one generator state gives the same weights whatever ``device`` is."""
@@ -175,11 +170,24 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
             if leaf.startswith("norm") or leaf == "final_norm":
                 p.fill_(1.0)
                 continue
-            scale = 0.02 if name == "embed" else p.shape[0] ** -0.5
+            scale = _init_scale(cfg, name, p)
             w = torch.randn(p.shape, generator=generator,
                             device=generator.device, dtype=torch.float32)
             p.copy_((w * scale).to(p.dtype))
     return model
+
+
+def _init_scale(cfg: ModelConfig, name: str, p) -> float:
+    """The standard deviation the reference draws parameter ``name`` at
+    (``moe.py:moe_init`` for the 3-D expert leaves: (E*v, d, f) and
+    (E*v, f, d))."""
+    if name == "embed":
+        return 0.02
+    if p.ndim == 3:
+        if name.endswith(".wo"):
+            return (p.shape[1] * cfg.moe_virtual_split) ** -0.5
+        return p.shape[1] ** -0.5
+    return p.shape[0] ** -0.5
 
 
 def param_bytes(model: nn.Module) -> int:
@@ -192,7 +200,10 @@ def param_bytes(model: nn.Module) -> int:
 
 
 def _apply_block(bp: Block, x, cfg: ModelConfig, *, positions, mode, cache,
-                 active=None, rope=None):
+                 active=None, rope=None, moe_impl: str = "capacity"):
+    """-> (x, new cache, aux): ``aux`` is the MoE layer's load-balancing
+    loss, 0 for another MLP."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(bp.norm1, x, cfg.norm_eps, policy=cfg.norm_reduce_policy)
     out, new_cache = bp.core(h, positions=positions, mode=mode, cache=cache,
                              active=active, rope=rope)
@@ -200,23 +211,32 @@ def _apply_block(bp: Block, x, cfg: ModelConfig, *, positions, mode, cache,
     if bp.spec.mlp != "none":
         h2 = rmsnorm(bp.norm2, x, cfg.norm_eps,
                      policy=cfg.norm_reduce_policy)
-        x = x + bp.mlp(h2)
-    return x, new_cache
+        if bp.spec.mlp == "moe":
+            out, a = bp.mlp(h2, impl=moe_impl)
+            aux = aux + a
+        else:
+            out = bp.mlp(h2)
+        x = x + out
+    return x, new_cache, aux
 
 
 def _run_stack(model: LM, x, *, positions, mode, caches, active=None,
-               remat: bool = False):
+               remat: bool = False, moe_impl: str = "capacity"):
     """Every layer in order.  ``caches``: one ``{"core": KVCache}`` per
     period position, leaves with a leading ``n_periods`` axis, or None.
     ``remat`` (train mode, with autograd recording): each block runs under
     a non-reentrant ``torch.utils.checkpoint``, keeping only its input
     and recomputing the rest in the backward.
-    Returns (x, new caches in the same layout, aux)."""
+    Returns (x, new caches in the same layout, aux): aux sums each
+    period's layers in order from 0, then the periods, as the
+    reference."""
     cfg = model.cfg
     pattern = cfg.period
     rope = rope_tables(positions, cfg.hdim, cfg.rope_theta)
     per_pos = [[] for _ in pattern]
+    auxs = []
     for i in range(cfg.n_periods):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for j in range(len(pattern)):
             c = None
             if caches is not None:
@@ -224,12 +244,15 @@ def _run_stack(model: LM, x, *, positions, mode, caches, active=None,
                 c = attn.KVCache(full.k[i], full.v[i], full.length[i])
             block = model.blocks[i * len(pattern) + j]
             if remat and mode == "train" and torch.is_grad_enabled():
-                x, nc = checkpoint(block, x, positions=positions, mode=mode,
-                                   rope=rope, use_reentrant=False)
+                x, nc, a = checkpoint(block, x, positions=positions,
+                                      mode=mode, rope=rope,
+                                      moe_impl=moe_impl, use_reentrant=False)
             else:
-                x, nc = block(x, positions=positions, mode=mode, cache=c,
-                              active=active, rope=rope)
+                x, nc, a = block(x, positions=positions, mode=mode, cache=c,
+                                 active=active, rope=rope, moe_impl=moe_impl)
             per_pos[j].append(nc)
+            aux = aux + a
+        auxs.append(aux)
     new_caches = []
     for j, ncs in enumerate(per_pos):
         if ncs[0] is None:
@@ -242,8 +265,7 @@ def _run_stack(model: LM, x, *, positions, mode, caches, active=None,
             new_caches.append({"core": attn.KVCache(
                 *(torch.stack([getattr(c, f) for c in ncs])
                   for f in attn.KVCache._fields))})
-    return x, new_caches, torch.zeros((), dtype=torch.float32,
-                                      device=x.device)
+    return x, new_caches, torch.stack(auxs).sum()
 
 
 # ---------------------------------------------------------------------------
@@ -266,26 +288,28 @@ def _lm_head(model: LM) -> torch.Tensor:
 
 def forward_hidden(model: LM, *, tokens, positions=None, mode: str = "train",
                    caches=None, position_offset=0, active=None,
-                   remat: bool = False):
+                   remat: bool = False, moe_impl: str = "capacity"):
     """Backbone only: (final-norm hidden states, caches, aux)."""
     if positions is None:
         positions = _default_positions(tokens.shape[0], tokens.shape[1],
                                        position_offset, tokens.device)
     return model.hidden(tokens, positions=positions, mode=mode,
-                        caches=caches, active=active, remat=remat)
+                        caches=caches, active=active, remat=remat,
+                        moe_impl=moe_impl)
 
 
 def forward(model: LM, *, tokens, positions=None, mode: str = "train",
-            caches=None, position_offset=0, active=None):
+            caches=None, position_offset=0, active=None,
+            moe_impl: str = "capacity"):
     """Returns (logits (B, S, padded_vocab) float32, new caches, aux).
-    ``aux`` is the MoE load-balance term of the reference: always 0 here.
-    ``active`` (B,) bool, decode only: rows where it is False keep their
-    caches as they were."""
+    ``aux`` is the MoE load-balance term of the reference (0 without
+    experts).  ``active`` (B,) bool, decode only: rows where it is False
+    keep their caches as they were."""
     if positions is None:
         positions = _default_positions(tokens.shape[0], tokens.shape[1],
                                        position_offset, tokens.device)
     return model(tokens, positions=positions, mode=mode, caches=caches,
-                 active=active)
+                 active=active, moe_impl=moe_impl)
 
 
 def _chunk_nll(h, head, labels, mask):
@@ -314,9 +338,8 @@ def loss_fn(model: LM, batch, *, moe_impl: str = "capacity",
     non-reentrant checkpoint so that only one chunk's (B, c, V) logits
     live; the chunk sums add in order onto 0 and the token count
     normalizes once at the end.  ``remat`` recomputes each block in the
-    backward.  ``moe_impl`` is accepted and ignored (a model with experts
-    raises when it is built); ``logits_pspec`` and the embedding inputs
-    of multimodal models raise."""
+    backward.  ``moe_impl`` picks the MoE dispatch; ``logits_pspec`` and
+    the embedding inputs of multimodal models raise."""
     cfg = model.cfg
     if logits_pspec is not None:
         raise NotImplementedError(
@@ -330,7 +353,8 @@ def loss_fn(model: LM, batch, *, moe_impl: str = "capacity",
     tokens = batch["tokens"]
     hidden, _, aux = forward_hidden(model, tokens=tokens,
                                     positions=batch.get("positions"),
-                                    mode="train", remat=remat)
+                                    mode="train", remat=remat,
+                                    moe_impl=moe_impl)
     labels = batch.get("labels")
     if labels is None:
         labels = tokens[:, 1:]
@@ -364,12 +388,15 @@ def loss_fn(model: LM, batch, *, moe_impl: str = "capacity",
 def init_caches(cfg: ModelConfig, bsz: int, max_len: int, *, device=None,
                 dtype=torch.float32) -> list:
     """Zeroed caches, one ``{"core": KVCache}`` per period position with a
-    leading ``n_periods`` axis: k, v (n, B, max_len, K, hd) in ``dtype``
-    (float32, the decode kernel's input, by default), length (n, B)."""
+    leading ``n_periods`` axis: k, v (n, B, T, K, hd) in ``dtype``
+    (float32, the decode kernel's input, by default), length (n, B).
+    T is ``max_len``, or ``cfg.window`` for a sliding-window model (a
+    ring, whatever ``max_len`` is)."""
     check_supported(cfg)
     dev = resolve_device(device)
     n = cfg.n_periods
-    shape = (n, bsz, max_len, cfg.n_kv_heads, cfg.hdim)
+    slots = cfg.window if cfg.window is not None else max_len
+    shape = (n, bsz, slots, cfg.n_kv_heads, cfg.hdim)
     return [{"core": attn.KVCache(
         k=torch.zeros(shape, dtype=dtype, device=dev),
         v=torch.zeros(shape, dtype=dtype, device=dev),
@@ -384,7 +411,10 @@ def cache_bytes(caches) -> int:
 
 def pad_caches_to(cfg: ModelConfig, caches, max_len: int):
     """Grow prefill-shaped KV caches (sequence axis == prefill length) to
-    ``max_len`` with zero rows so decode can append."""
+    ``max_len`` with zero rows so decode can append.  Ring caches are
+    ``cfg.window`` slots already and are left as they are."""
+    if cfg.window is not None:
+        return list(caches)
     out = []
     for c in caches:
         core = c["core"]
@@ -397,7 +427,8 @@ def pad_caches_to(cfg: ModelConfig, caches, max_len: int):
     return out
 
 
-def decode_step(model: LM, token, caches, position, *, active=None):
+def decode_step(model: LM, token, caches, position, *, active=None,
+                moe_impl: str = "capacity"):
     """One serving step: token (B, s) -> (logits (B, s, V), new caches).
 
     ``position`` is a scalar (lock-step batch) or a (B,) tensor of
@@ -406,7 +437,7 @@ def decode_step(model: LM, token, caches, position, *, active=None):
     ``forward``."""
     logits, new_caches, _ = forward(model, tokens=token, mode="decode",
                                     caches=caches, position_offset=position,
-                                    active=active)
+                                    active=active, moe_impl=moe_impl)
     return logits, new_caches
 
 

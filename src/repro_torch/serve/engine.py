@@ -9,14 +9,18 @@ intermediate storage (admission only: the KV itself lives in one dense
 slot cache, ``models.init_caches``).
 
 Prefill streams in ``prefill_chunk``-token pieces at batch 1, every chunk
-padded to the same width, interleaved with decode steps.  Every decode
-step runs all ``max_batch`` rows with idle and mid-prefill slots masked
-(``active``: their caches and lengths stay as they were).  Fixed shapes
-and row-parallel math make a request's logits bitwise independent of its
-batchmates, so greedy tokens are the same alone or batched.  On a CUDA
-device each decode step's attention is K2 (``kernels.flash_decode``) in
-every layer, and ``mean_logprob`` is one segmented mean through
-``repro_torch.reduce``: K1 on the ``cuda`` backend.
+padded to the same width, interleaved with decode steps; a sliding-window
+model (ring caches) prefills each prompt whole at batch 1 instead, as the
+reference does, and splices the ring into the slot.  Every model call
+runs the MoE layers' ``dense`` dispatch, as the reference's engine does.
+Every decode step runs all ``max_batch`` rows with idle and mid-prefill
+slots masked (``active``: their caches and lengths stay as they were).
+Fixed shapes and row-parallel math make a request's logits bitwise
+independent of its batchmates, so greedy tokens are the same alone or
+batched.  On a CUDA device each decode step's attention is K2
+(``kernels.flash_decode``) in every layer, and ``mean_logprob`` is one
+segmented mean through ``repro_torch.reduce``: K1 on the ``cuda``
+backend.
 
 Sampling differs from the reference in how, not in what it promises.  The
 reference derives each sample's key with ``jax.random.fold_in``, which
@@ -81,7 +85,8 @@ class Engine:
     """Continuous-batching engine over ``Scheduler`` + ``PagedKVPool``.
 
     ``max_batch`` decode slots share one pre-allocated float32 cache of
-    ``max_len`` context each; ``num_pages`` x ``page_size`` tokens of KV
+    ``max_len`` context each (a ring of ``cfg.window`` slots for a
+    sliding-window model); ``num_pages`` x ``page_size`` tokens of KV
     pool gate admission (default: exactly enough for every slot at full
     context, so admission is slot-bound; shrink it to exercise queueing).
     ``model`` is an ``LM`` on ``device`` (None means CUDA).
@@ -110,9 +115,9 @@ class Engine:
         self.scheduler = Scheduler(max_batch, self.pool)
         self._caches = init_caches(cfg, max_batch, max_len,
                                    device=self.device)
-        # chunked prefill streams through the attention extend path; the
-        # whole-prompt path is the reference's for SSM and sliding-window
-        # models, which the port's model does not run yet
+        # chunked prefill streams through the attention extend path; ring
+        # (sliding-window) caches must not see padded chunk writes, so
+        # those models prefill whole-prompt, as the reference's
         self._extend_ok = (all(sp.kind == "attn" for sp in cfg.period)
                            and cfg.window is None)
         self._clock = 0
@@ -126,7 +131,8 @@ class Engine:
         """One decode step of every slot; inactive slots keep their
         caches."""
         logits, self._caches = decode_step(self.model, toks, self._caches,
-                                           pos, active=active)
+                                           pos, active=active,
+                                           moe_impl="dense")
         return logits
 
     def _prefill_chunk(self, slot: int, toks, start: int,
@@ -140,15 +146,17 @@ class Engine:
             torch.full_like(c["core"].length[:, slot:slot + 1], start))}
             for c in self._caches]
         logits, _, _ = forward(self.model, tokens=toks, mode="decode",
-                               caches=sub, position_offset=start)
+                               caches=sub, position_offset=start,
+                               moe_impl="dense")
         for c in self._caches:
             c["core"].length[:, slot] = start + n_valid
         return logits[:, n_valid - 1:n_valid]
 
     def _classic_prefill(self, slot: int, toks):
-        """Whole-prompt prefill at batch 1, padded to ``max_len`` and
-        spliced into the slot."""
-        logits, sub, _ = forward(self.model, tokens=toks, mode="prefill")
+        """Whole-prompt prefill at batch 1, padded to ``max_len`` (a ring
+        is its ``cfg.window`` slots already) and spliced into the slot."""
+        logits, sub, _ = forward(self.model, tokens=toks, mode="prefill",
+                                 moe_impl="dense")
         sub = pad_caches_to(self.cfg, sub, self.max_len)
         for full, one in zip(self._caches, sub):
             for f in KVCache._fields:

@@ -18,8 +18,8 @@ twice per leaf and once across the leaves (37 launches a step for a dense
 model with both set); with both unset a step launches none of the port's
 kernels.  What this port lacks raises ``NotImplementedError`` naming the
 ``ROADMAP.md`` item that brings it: ``grad_reduce_mesh`` and
-``logits_pspec`` (queue 1, item 5, multi-device), models with experts or
-other families (item 4).
+``logits_pspec`` (queue 1, item 5, multi-device), training a model with
+experts (item 8), other families (item 4).
 """
 
 from __future__ import annotations
@@ -38,6 +38,8 @@ from ..reduce.accumulator import (accumulate_microbatch_grads,
                                   reduce_microbatch_grads)
 
 _ITEM5 = "ROADMAP.md queue 1, item 5 (multi-device) brings it"
+_ITEM8 = ("ROADMAP.md queue 1, item 8 (MoE training on one device) brings "
+          "it")
 
 
 def _to_device(batch, dev):
@@ -87,10 +89,14 @@ def make_train_step(cfg: ModelConfig, *, lr_fn: Callable,
     integer tiers).  ``norm_policy`` routes the clip's global norm
     through ``repro_torch.reduce`` (``adamw.global_norm``).  The loss is
     the mean of the microbatch losses; ``lr`` is ``lr_fn(count + 1)``.
-    ``moe_impl`` is accepted and ignored (a model with experts raises
-    here).  The step switches gradients on for every parameter of the
-    model it trains."""
+    ``moe_impl`` is accepted for the reference's signature: a model with
+    experts raises here.  The step switches gradients on for every
+    parameter of the model it trains."""
     check_supported(cfg)
+    if any(sp.mlp == "moe" for sp in cfg.period):
+        raise NotImplementedError(f"make_train_step: {cfg.name} has "
+                                  f"experts (moe); training them is "
+                                  f"{_ITEM8}")
     if grad_reduce_mesh is not None:
         raise NotImplementedError(f"make_train_step(grad_reduce_mesh=): "
                                   f"{_ITEM5}")
@@ -164,7 +170,7 @@ def make_prefill_step(cfg: ModelConfig, *, moe_impl: str = "capacity",
         batch = _to_device(batch, dev)
         logits, caches, _ = forward(model, tokens=batch["tokens"],
                                     positions=batch.get("positions"),
-                                    mode="prefill")
+                                    mode="prefill", moe_impl=moe_impl)
         return logits[:, -1:], caches
     return prefill_step
 
@@ -184,7 +190,7 @@ def make_decode_step(cfg: ModelConfig, *, moe_impl: str = "capacity",
                 "decode_step(enc_out=): enc-dec models are ROADMAP.md "
                 "queue 1, item 4")
         return decode_step(model, torch.as_tensor(token, device=dev),
-                           caches, position)
+                           caches, position, moe_impl=moe_impl)
     return dstep
 
 

@@ -1,8 +1,9 @@
 """The port's configuration copies and model support against the
 reference, on the CPU: every architecture's CONFIG and SMOKE equal the
-reference's, the dense GQA ones build, the rest raise naming what the
-port lacks, and stablelm-1.6b's full-width parameter shapes match the
-reference's ``init_params`` (both abstract: nothing is allocated)."""
+reference's, the GQA ones (dense or with experts, dense or ring caches)
+build, the rest raise naming what the port lacks, and stablelm-1.6b's
+full-width parameter shapes match the reference's ``init_params`` (both
+abstract: nothing is allocated)."""
 
 import dataclasses
 
@@ -23,10 +24,11 @@ ARCH = "stablelm-1.6b"
 
 @pytest.mark.parametrize("arch", RC.ARCH_IDS)
 def test_config_copy_and_model_support(arch):
-    """CONFIG and SMOKE equal the reference's field for field; a dense GQA
-    model builds on the meta device (nothing allocated) with the
-    reference's parameter count plus its norms; any other configuration
-    raises NotImplementedError naming everything the port lacks."""
+    """CONFIG and SMOKE equal the reference's field for field; a GQA
+    model (mixtral-8x22b's experts included) builds on the meta device
+    (nothing allocated) with the reference's parameter count plus its
+    norms; any other configuration raises NotImplementedError naming
+    everything the port lacks."""
     assert TC.ARCH_IDS == RC.ARCH_IDS
     for get in ("get_config", "get_smoke_config"):
         ref = getattr(RC, get)(arch)
@@ -53,16 +55,20 @@ def test_config_copy_and_model_support(arch):
 
 
 def test_unsupported_names_each_missing_kind():
-    want = {"mixtral-8x22b": {"moe", "ring (window) caches"},
-            "deepseek-v2-lite-16b": {"mla (latent attention)", "moe"},
+    """Experts and ring caches are ported: mixtral-8x22b runs,
+    deepseek-v2-lite-16b lacks MLA alone and jamba-v0.1-52b mamba
+    alone."""
+    want = {"deepseek-v2-lite-16b": {"mla (latent attention)"},
             "xlstm-125m": {"mlstm", "slstm"},
-            "jamba-v0.1-52b": {"mamba", "moe"},
+            "jamba-v0.1-52b": {"mamba"},
             "qwen2-vl-7b": {"embed_inputs", "mrope"},
-            "seamless-m4t-large-v2": {"enc-dec"},
-            "stablelm-1.6b": set()}
+            "seamless-m4t-large-v2": {"enc-dec"}}
     for arch, kinds in want.items():
         assert set(TM.unsupported(TC.get_config(arch))) >= kinds, arch
-    assert TM.unsupported(TC.get_config(ARCH)) == []
+    for arch in ("deepseek-v2-lite-16b", "jamba-v0.1-52b"):
+        assert set(TM.unsupported(TC.get_config(arch))) == want[arch]
+    for arch in (ARCH, "mixtral-8x22b"):
+        assert TM.unsupported(TC.get_config(arch)) == []
 
 
 def test_full_width_shapes_on_meta_match_eval_shape():

@@ -519,6 +519,58 @@ def test_cuda_serve_engine_runs_k2_each_step_and_k1_for_the_mean(cuda):
 
 
 @pytest.mark.cuda
+def test_cuda_k2_on_a_wrapped_ring_bitwise_plain(cuda):
+    """mixtral's SMOKE model (window 16, experts) on the card: nine decode
+    steps after a 21-token prefill, so every step reads a wrapped ring.
+    K2 launches once a layer a step, reads ``kv_len = W`` rows (the live
+    slots, in slot order), and each of its outputs in the last layer is
+    bitwise its plain version on the same ring; the MoE router's
+    ``exact`` normalization through K1 is bitwise ``blocked``'s."""
+    import dataclasses
+    import importlib
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params, moe
+    from repro_torch.models import model as TM
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
+    cfg = get_smoke_config("mixtral-8x22b")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(9)
+    model = init_params(cfg, generator=gen, device=cuda)
+    seen = []
+    model.blocks[-1].core.decode_attn.register_forward_hook(
+        lambda mod, args, out: seen.append(
+            ([a.clone() if torch.is_tensor(a) else a for a in args],
+             out.clone())))
+    toks = torch.randint(1, cfg.vocab, (3, 30), generator=gen, device=cuda)
+    _, caches, _ = TM.forward(model, tokens=toks[:, :21], mode="prefill",
+                              moe_impl="dense")
+    before = fd.LAUNCHES["dense"]
+    for i in range(21, 30):
+        _, caches = TM.decode_step(model, toks[:, i:i + 1], caches, i,
+                                   moe_impl="dense")
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["dense"] == before + 9 * cfg.n_layers
+    assert len(seen) == 9
+    for (q, k, v, kv_len, sc), out in seen:
+        assert k.shape[1] == cfg.window
+        assert kv_len.tolist() == [cfg.window] * 3
+        bias = ops.length_bias(kv_len, k.shape[1], None, cuda)
+        plain = fd.flash_decode_torch(q.float().contiguous(), k, v, bias,
+                                      sm_scale=sc, block_kv=512)
+        assert torch.equal(out, plain)
+    m = dataclasses.replace(cfg.moe, router_norm_topk=True,
+                            router_norm_policy="exact")
+    x = torch.randn(300, cfg.d_model, generator=gen, device=cuda)
+    router = model.blocks[0].mlp.router
+    K.LAUNCHES = 0
+    w, idx, _ = moe.router_topk(router, x, m)
+    assert K.LAUNCHES == 1
+    wb, idxb, _ = moe.router_topk(router, x, m, backend="blocked")
+    assert torch.equal(idx, idxb) and torch.equal(w, wb)
+
+
+@pytest.mark.cuda
 def test_cuda_train_step_launches_k1_37_times_with_both_knobs(cuda):
     """A train step on the card (the SMOKE model in bf16: the narrow
     matmul and its backward): with ``grad_reduce`` and ``norm_policy``
