@@ -16,9 +16,12 @@ training path: stablelm-1.6b at full width through the port's train step
 (the JugglePAC gradient juggler; microbatch gradients and the clip norm
 on K1; AdamW), then its train state checkpointed and resumed
 (``repro_torch.ckpt``), and the streaming accumulators at the INTAC
-shape.  Last, mixtral-8x22b at full width (8 of its 56 layers) served
+shape.  Then mixtral-8x22b at full width (8 of its 56 layers) served
 through the same ``Engine`` on sliding-window ring caches, its experts
-through the dense MoE.  All data is drawn from ``--seed``.  Phases, in order; any
+through the dense MoE.  Last, deepseek-v2-lite-16b whole (all 27 layers,
+full width) served through the ``Engine`` on latent caches, its
+multi-head latent attention decoding absorbed.  All data is drawn from
+``--seed``.  Phases, in order; any
 failure exits nonzero:
 
 1. device — the card's name and power limit, as nvidia-smi prints them;
@@ -133,7 +136,25 @@ failure exits nonzero:
    last decode logits within ``MOE_LOGIT_BOUND`` of a cache-free
    windowed forward; timings: a decode step against the weights' bound,
    the whole-prompt prefills at 4,096 and 5,120, generated tokens/s, K2
-   per layer against its bound and SDPA, peak memory.
+   per layer against its bound and SDPA, peak memory;
+15. serve-mla — deepseek-v2-lite-16b's ``CONFIG`` whole: 27 layers at
+   full width, nothing cut (random weights from the seed, 32.42 GB),
+   through ``Engine(max_len=4096, max_batch=8, prefill_chunk=32)`` on f32
+   latent caches (the chunked extend prefill, the dense MoE), 8 greedy
+   requests of 32 new tokens (six prompts of 64-768 tokens, one of 2,048
+   and one of 3,072): every result complete and in order; K1 launched
+   once, for ``mean_logprob``, and K2 never (counts set to 0 just before
+   the run, read just after); the 2,048 request alone gives bitwise its
+   batched tokens; ``router_topk`` with ``router_norm_policy="exact"``
+   over that request's prefill router stream (6 choices a token) and the
+   latent's ``rmsnorm(policy="exact")`` over its (2,048, 512) latent,
+   each through K1 bitwise ``blocked``; the 3,072 request's last decode
+   logits within ``MLA_LOGIT_BOUND`` of a cache-free forward, and within
+   ``MLA_F32_BOUND`` in float32 weights, dense SwiGLUs in place of the
+   experts (no router choice to flip); timings: a
+   decode step against the weights' bound, a prefill chunk, generated
+   tokens/s, the absorbed decode attention a layer, the cache bytes
+   beside a GQA cache's, peak memory.
 
 Times are CUDA-event medians after a warm-up (plain versions: one
 host-clock run; K1 on the train path: the sum over a step's launches,
@@ -250,6 +271,46 @@ MOE_TAP_STEP = 24
 #: relative) a layer over 8 layers; as phase 10's bound, a wrong ring
 #: slot, position or window moves the logits by about their whole spread
 MOE_LOGIT_BOUND = 0.25
+#: the serve-mla phase: deepseek-v2-lite-16b's published CONFIG (src/
+#: repro_torch/configs/deepseek_v2_lite_16b.py, arXiv:2405.04434,
+#: hf:deepseek-ai/DeepSeek-V2-Lite) whole, nothing cut: 27 layers, d_model
+#: 2,048, 16 heads, latent rank 512, nd 128, rd 64, vd 128, 64 experts
+#: top-6 and 2 shared of d_ff 1,408, vocab 102,400; 16,210,198,528 bf16
+#: parameters and f32 routers (32.42 GB).  8 slots of 4,096 context on f32
+#: latent caches (27 x 8 x 4,096 x 576 x 4 B = 2.04 GB; GQA caches of the
+#: same 16 x 128 heads would take 14.50 GB), 32-token prefill chunks (the
+#: extend path), 8 greedy requests of 32 new tokens: six prompts in [64,
+#: 768], one of 2,048 and one of 3,072 tokens; both long prompts are
+#: multiples of attn_qchunk (1,024), so the cache-free forward below,
+#: padded to 4,096, takes the chunked attention
+MLA_ARCH, MLA_LEN, MLA_SLOTS, MLA_CHUNK, MLA_NEW = \
+    "deepseek-v2-lite-16b", 4096, 8, 32, 32
+MLA_PROMPTS, MLA_LONG = (64, 768), (2048, 3072)
+#: decode step whose absorbed attention inputs are captured (middle layer)
+MLA_TAP_STEP = 24
+#: max |decode logits - cache-free forward logits| over the latter's std,
+#: for the 3,072-token request's last decode step.  In bf16 the two paths
+#: round activations after different f32 sums (absorbed attention on the
+#: f32 latent against keys and values expanded to bf16; 1- and 32-row
+#: products against 4,096-row ones), and with 64 experts a few router
+#: probabilities apart by 1e-4 to 1e-3, those roundings flip top-6
+#: choices: tools/mla_drift.py counted flips in 52 of 3,072 prompt tokens
+#: at layer 0, rising to about 1,300 by layer 26, the last token's
+#: choices flipping in 3 layers, and logits 0.268 apart (0.589 for this
+#: phase's request).  Logits of an unrelated position or cache row lie
+#: about 6 std apart (two independent draws, max over 102,400 entries),
+#: so this bound catches gross faults only; the float32 check below
+#: catches the rest
+MLA_LOGIT_BOUND = 1.5
+#: the same comparison with float32 weights at full width and depth, the
+#: experts replaced by a dense SwiGLU of d_ff 1,408 (4.1 GB): with no bf16
+#: rounding and no router, absorbed and unabsorbed attention are one
+#: function summed in another order, a few float32 ulps a layer.  With
+#: the experts kept, float32 still flips a few near-tied top-6 choices
+#: among the prompt's tokens (9.2e-4 measured at 8 layers); without them
+#: any wrong latent row, position, RoPE slice, mask or absorption moves
+#: the logits far past this bound
+MLA_F32_BOUND = 1e-3
 
 
 def fail(msg: str) -> int:
@@ -2197,6 +2258,340 @@ def serve_moe_phase(seed, dev, smi):
     return entries
 
 
+def serve_mla_phase(seed, dev, smi):
+    """Phase 15: deepseek-v2-lite-16b whole, at full width and all 27
+    layers, served through the port's ``Engine`` on latent caches;
+    returns the kernel entries of K1 on ``mean_logprob``, on the router's
+    normalization and on the latent's rmsnorm."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import jugglepac_segsum as K
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.models.layers import dense, rmsnorm
+    from repro_torch.serve import Engine, Request
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    cfg = get_config(MLA_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 31)
+    t_phase = time.perf_counter()
+    model = M.init_params(cfg, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_phase
+    weights_gb = M.param_bytes(model) / 1e9
+    host = torch.Generator()
+    host.manual_seed(seed + 32)
+    lens = torch.randint(MLA_PROMPTS[0], MLA_PROMPTS[1] + 1,
+                         (MLA_SLOTS - len(MLA_LONG),),
+                         generator=host).tolist() + list(MLA_LONG)
+    requests = [Request(prompt=torch.randint(1, cfg.vocab, (n,),
+                                             generator=host).tolist(),
+                        max_new_tokens=MLA_NEW) for n in lens]
+    two_k, last = MLA_SLOTS - 2, MLA_SLOTS - 1   # the 2,048 and 3,072
+    print(f"serve-mla: {cfg.name} whole (d_model {cfg.d_model}, "
+          f"{cfg.n_layers} layers, {cfg.n_heads} heads, latent "
+          f"{cfg.kv_lora_rank} + rope {cfg.qk_rope_dim}, "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} + "
+          f"{cfg.moe.num_shared} shared, d_ff {cfg.moe.d_ff_expert}, vocab "
+          f"{cfg.vocab}, {cfg.dtype}): "
+          f"{sum(p.numel() for p in model.parameters())} parameters "
+          f"({weights_gb:.3f} GB) drawn in {init_s:.2f} s "
+          f"({held / 2 ** 30:.2f} GiB held before); {MLA_SLOTS} slots x "
+          f"{MLA_LEN} context, "
+          f"prefill chunks of {MLA_CHUNK}; prompts {lens}, {MLA_NEW} new "
+          f"tokens each, greedy", flush=True)
+
+    def engine():
+        return Engine(cfg, model, max_len=MLA_LEN, max_batch=MLA_SLOTS,
+                      prefill_chunk=MLA_CHUNK, logprob_policy="compensated",
+                      device=dev)
+
+    # taps: decode steps seen by layer 0's absorbed attention (s = 1; a
+    # prefill chunk goes through it too, at s = 32); the middle layer's
+    # absorbed attention inputs and output at one decode step; the
+    # model's last decode-step logits
+    layer = cfg.n_layers // 2
+    tap = {"steps": 0, "mid": 0, "logits": None}
+
+    def count_steps(mod, args, out):
+        tap["steps"] += int(args[0].shape[1] == 1)
+
+    def capture(mod, args, out):
+        if args[0].shape[1] != 1:
+            return
+        tap["mid"] += 1
+        if tap["mid"] == MLA_TAP_STEP:
+            tap["attn"] = tuple(a.clone() if torch.is_tensor(a) else a
+                                for a in args)
+            tap["attn_out"] = out.clone()
+
+    def last_logits(mod, args, kwargs, out):
+        if kwargs.get("mode") == "decode" and args[0].shape[1] == 1:
+            tap["logits"] = out[0][:, 0].clone()
+
+    hooks = [model.blocks[0].core.latent_attn.register_forward_hook(
+                 count_steps),
+             model.blocks[layer].core.latent_attn.register_forward_hook(
+                 capture),
+             model.register_forward_hook(last_logits, with_kwargs=True)]
+
+    # the main path: counts set to 0 just before, read just after
+    eng = engine()
+    slot_of, stream = {}, {}
+
+    def on_step(e, step):
+        slot_of.update((tr.rid, tr.slot)
+                       for tr in e.scheduler.in_state("decode"))
+        stream["vals"], stream["ids"] = list(e._lp_vals), list(e._lp_ids)
+
+    rids = [eng.submit(r) for r in requests]
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.run(on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    for hk in hooks:
+        hk.remove()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = tap["steps"]
+    new = sum(len(r.tokens) - r.prompt_len for r in results)
+    print(f"main serve-mla: {len(results)} results in order "
+          f"{[r.rid for r in results]}, {new} tokens, {steps} decode steps, "
+          f"{eng._clock} engine steps in {wall * 1e3:.1f} ms; launches "
+          f"{launches} (K1 want 1, K2 want 0); peak memory {peak_gb:.2f} "
+          f"GiB; mean_logprob {[round(r.mean_logprob, 4) for r in results]}",
+          flush=True)
+    check([r.rid for r in results] == rids
+          and all(len(r.tokens) - r.prompt_len == MLA_NEW
+                  and r.tokens[:r.prompt_len] == q.prompt
+                  and all(0 <= t < cfg.vocab for t in r.tokens)
+                  and math.isfinite(r.mean_logprob)
+                  for r, q in zip(results, requests)),
+          "serve-mla: results out of order, short, out of the vocabulary "
+          "or with a non-finite mean_logprob")
+    check(steps >= MLA_NEW - 1
+          and launches == {"K1": 1, "K2": 0, "K3": 0, "K4": 0, "K5": 0},
+          f"serve-mla: launches {launches} for {steps} decode steps")
+
+    # K1 at the mean_logprob shape: the run's (step x slot) stream
+    vals = torch.cat(stream["vals"])[:, None]
+    ids = torch.from_numpy(np.concatenate(stream["ids"])).to(dev)
+    nseg = len(requests)
+    safe = torch.where((ids >= 0) & (ids < nseg), ids,
+                       torch.full_like(ids, nseg)).to(torch.int64)
+    entries = [dict(k1_entry(
+        "serve-mla", vals, ids, nseg, "compensated", smi,
+        lambda: torch.zeros((nseg + 1, 1), device=dev).index_add_(
+            0, safe, vals), op="mean"), launches=launches["K1"])]
+
+    # timings on the engine's final state: every slot active at its
+    # length, each call writing the same latent row (the caches not kept);
+    # the absorbed attention on the inputs captured in the middle layer
+    lengths = eng._caches[0]["core"].length[0].clone()
+    toks = torch.tensor([[r.tokens[-1]] for r in results], device=dev)
+    active = torch.ones(MLA_SLOTS, dtype=torch.bool, device=dev)
+    attn = model.blocks[layer].core.latent_attn
+    args = tap.pop("attn")
+    with torch.no_grad():
+        step_ms = cuda_ms(lambda: M.decode_step(
+            model, toks, eng._caches, lengths, active=active,
+            moe_impl="dense"), REPS)
+        chunk = torch.tensor([requests[0].prompt[:MLA_CHUNK]], device=dev)
+        chunk_ms = cuda_ms(lambda: eng._prefill_chunk(
+            0, chunk, 0, MLA_CHUNK), REPS)
+        again = attn(*args)
+        attn_ms = cuda_ms(lambda: attn(*args), REPS)
+    check(torch.equal(again, tap.pop("attn_out")),
+          "serve-mla: the absorbed attention does not repeat its output")
+    qn, _, c_kv, k_rope, newpos = args[:5]
+    live = int((newpos[:, 0] + 1).sum())        # latent rows attended
+    attn_bytes = live * (c_kv.shape[-1] + k_rope.shape[-1]) * 4
+    cache_gb = M.cache_bytes(eng._caches) / 1e9
+    gqa_gb = (cfg.n_layers * MLA_SLOTS * MLA_LEN * 2 * cfg.n_kv_heads
+              * cfg.hdim * 4) / 1e9
+    print(f"time serve-mla: decode step at B={MLA_SLOTS} {step_ms:.3f} ms "
+          f"(bound {weights_gb * 1e9 / HBM_BYTES_PER_S * 1e3:.3f} ms: the "
+          f"weights once over 3.35 TB/s; {MLA_SLOTS * 1e3 / step_ms:.1f} "
+          f"tokens/s decoding) | {MLA_CHUNK}-token prefill chunk "
+          f"{chunk_ms:.3f} ms | the run: {new} tokens in {wall * 1e3:.1f} ms"
+          f" ({new / wall:.1f} generated tokens/s, prefill included) | "
+          f"absorbed decode attention per layer {attn_ms:.4f} ms (layer "
+          f"{layer}, step {MLA_TAP_STEP}: q {tuple(qn.shape)}, latent cache "
+          f"{tuple(c_kv.shape)} {c_kv.dtype}, {live} live rows: bound "
+          f"{attn_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms), "
+          f"{cfg.n_layers} layers {cfg.n_layers * attn_ms:.3f} ms = "
+          f"{cfg.n_layers * attn_ms / step_ms:.3f} of a step | weights "
+          f"{weights_gb:.3f} GB, latent caches {cache_gb:.3f} GB (f32; a "
+          f"GQA cache of {cfg.n_kv_heads} x {cfg.hdim} heads {gqa_gb:.3f} "
+          f"GB), peak {peak_gb:.2f} GiB | {smi}", flush=True)
+    del args, qn, c_kv, k_rope, newpos, again, eng, vals, ids, safe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # batch independence: the 2,048-token request alone in a fresh
+    # Engine; its prefill chunks' middle-layer attention and MoE inputs
+    # are kept for the two K1 checks below
+    chunks = {"core": [], "mlp": []}
+
+    def keep(name):
+        def hook(mod, args):
+            if args[0].shape[1] == MLA_CHUNK:
+                chunks[name].append(args[0].clone())
+        return hook
+
+    hooks = [model.blocks[layer].core.register_forward_pre_hook(
+                 keep("core")),
+             model.blocks[layer].mlp.register_forward_pre_hook(keep("mlp"))]
+    alone = engine().generate([requests[two_k]])[0]
+    for hk in hooks:
+        hk.remove()
+    gc.collect()
+    torch.cuda.empty_cache()
+    same_toks = alone.tokens == results[two_k].tokens
+    print(f"check request {two_k} (prompt {lens[two_k]}) alone vs in the "
+          f"batch: tokens {'bitwise' if same_toks else 'DIFFER'}", flush=True)
+    check(same_toks, f"serve-mla: request {two_k} depends on its batch")
+    xa = torch.cat(chunks["core"], dim=1)[0]             # (2,048, d)
+    xm = torch.cat(chunks["mlp"], dim=1)[0]
+    check(xa.shape[0] == xm.shape[0] == lens[two_k],
+          f"serve-mla: captured {xa.shape[0]} and {xm.shape[0]} prefill "
+          f"rows, want {lens[two_k]}")
+
+    # K1 on the router's normalization: deepseek's router_norm_topk with
+    # the exact policy over that prefill's router stream (k = 6 rows x
+    # 2,048, one label)
+    core, mlp = model.blocks[layer].core, model.blocks[layer].mlp
+    m = dataclasses.replace(cfg.moe, router_norm_policy="exact")
+    K.LAUNCHES = 0
+    w_k1, idx_k1, _ = moe.router_topk(mlp.router, xm, m)
+    k1_count = K.LAUNCHES
+    w_bl, idx_bl, _ = moe.router_topk(mlp.router, xm, m, backend="blocked")
+    ok = torch.equal(idx_k1, idx_bl) and torch.equal(w_k1, w_bl)
+    print(f"check router_topk with router_norm_policy='exact' over the "
+          f"{xm.shape[0]}-token prefill's router stream (top-{m.top_k}): K1 "
+          f"launched {k1_count} time(s); weights through K1 "
+          f"{'bitwise' if ok else 'DIFFER from'} blocked's", flush=True)
+    check(ok and k1_count == 1, "serve-mla: the router's normalization "
+                                "through K1 differs from blocked's")
+    raw = moe.router_topk(mlp.router, xm, dataclasses.replace(
+        cfg.moe, router_norm_topk=False))[0]
+    wt = raw.T.contiguous()
+    entries.append(k1_entry("router-norm-mla", wt, torch.zeros(
+        wt.shape[0], dtype=torch.int32, device=dev), 1, "exact", smi,
+        lambda: torch.sum(wt, 0)))
+
+    # K1 on the latent's rmsnorm: that prefill's (2,048, 512) latent
+    # (the down-projection before its norm) under the exact policy
+    with torch.no_grad():
+        lat = dense(core.wdkv, xa)
+        K.LAUNCHES = 0
+        got = rmsnorm(core.c_norm, lat, cfg.norm_eps, policy="exact")
+        k1_count = K.LAUNCHES
+        ok = torch.equal(got, rmsnorm(core.c_norm, lat, cfg.norm_eps,
+                                      policy="exact", backend="blocked"))
+    print(f"check the latent's rmsnorm(policy='exact') over "
+          f"{tuple(lat.shape)}: K1 launched {k1_count} time(s), "
+          f"{'bitwise' if ok else 'DIFFERS from'} blocked", flush=True)
+    check(ok and k1_count == 1, "serve-mla: the latent's rmsnorm through "
+                                "K1 differs from blocked")
+    sq = lat.float().T.contiguous() ** 2            # the stream K1 sums
+    entries.append(k1_entry("latent-norm", sq, torch.zeros(
+        sq.shape[0], dtype=torch.int32, device=dev), 1, "exact", smi,
+        lambda: torch.sum(sq, 0), op="sumsq"))
+    del xa, xm, lat, got, raw, wt, sq, chunks
+
+    # the 3,072-token request's last decode logits against a cache-free
+    # forward over its tokens, padded to 4,096 (causal: the padding is
+    # never seen) so that its attention takes the chunked path
+    seq = results[last].tokens[:-1]
+    pad = -len(seq) % cfg.attn_qchunk
+    with torch.no_grad():
+        full = M.forward(model, tokens=torch.tensor(
+            [seq + [0] * pad], device=dev), mode="train",
+            moe_impl="dense")[0]
+    ref = full[0, len(seq) - 1]
+    del full
+    got = tap["logits"][slot_of[last]]
+    rel = float((got - ref).abs().max() / ref.std())
+    agree = int(got[:cfg.vocab].argmax()) == int(ref[:cfg.vocab].argmax())
+    print(f"check request {last}'s last decode step (position "
+          f"{len(seq) - 1}, slot {slot_of[last]}) vs a cache-free forward "
+          f"over its {len(seq)} tokens (+{pad} padding): max|diff| / "
+          f"std(logits) = {rel:.5f} (bound {MLA_LOGIT_BOUND}), std "
+          f"{float(ref.std()):.4f}, argmax {'agrees' if agree else 'differs'}"
+          f" | phase {time.perf_counter() - t_phase:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | {smi}",
+          flush=True)
+    check(bool(torch.isfinite(got).all()) and rel <= MLA_LOGIT_BOUND,
+          "serve-mla: decode logits outside the bound of the cache-free "
+          "forward")
+    del model, results, got, ref, tap
+    gc.collect()
+    torch.cuda.empty_cache()
+    mla_f32_check(cfg, requests[last], seed, dev, smi)
+    print(f"serve-mla: the phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return entries
+
+
+def mla_f32_check(cfg, request, seed, dev, smi):
+    """Phase 15's float32 check: ``request`` through a fresh ``Engine``
+    on ``cfg``'s attention at full width and depth in float32 weights,
+    its experts replaced by a dense SwiGLU of ``cfg.d_ff``; the last
+    decode step's logits against a cache-free forward, max |diff| / std
+    within ``MLA_F32_BOUND``."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.config import BlockSpec
+    from repro_torch.serve import Engine
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                period=(BlockSpec("attn", "swiglu"),))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 33)
+    model = M.init_params(cfg32, generator=gen, device=dev)
+    tap = {}
+
+    def last_logits(mod, args, kwargs, out):
+        if kwargs.get("mode") == "decode" and args[0].shape[1] == 1:
+            tap["logits"] = out[0][0, 0].clone()     # slot 0: alone
+
+    hook = model.register_forward_hook(last_logits, with_kwargs=True)
+    res = Engine(cfg32, model, max_len=MLA_LEN, max_batch=MLA_SLOTS,
+                 prefill_chunk=MLA_CHUNK, device=dev).generate([request])[0]
+    hook.remove()
+    seq = res.tokens[:-1]
+    pad = -len(seq) % cfg.attn_qchunk
+    with torch.no_grad():
+        ref = M.forward(model, tokens=torch.tensor(
+            [seq + [0] * pad], device=dev), mode="train")[0][0, len(seq) - 1]
+    got = tap["logits"]
+    rel = float((got - ref).abs().max() / ref.std())
+    print(f"check the {len(request.prompt)}-token request in float32 "
+          f"weights, {cfg32.n_layers} MLA layers with dense SwiGLUs of "
+          f"{cfg32.d_ff} ({M.param_bytes(model) / 1e9:.3f} GB): last decode"
+          f" step vs a cache-free forward over {len(seq)} tokens: max|diff|"
+          f" / std(logits) = {rel:.3g} (bound {MLA_F32_BOUND:g}) | {smi}",
+          flush=True)
+    check(bool(torch.isfinite(got).all()) and rel <= MLA_F32_BOUND,
+          "serve-mla: float32 decode logits outside the bound of the "
+          "cache-free forward")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2445,12 +2840,15 @@ def main(argv=None) -> int:
                         "main path's shape")
         errs[tier] = max(errs[tier], perr)
         lib_ms = None
-        if tier in ("fast", "exact"):     # one index_add_ is this function
+        if tier != "compensated":   # one index_add_ gives the same totals
+            # (the integer tiers': their domain's int32 column sums)
             safe = torch.where(mids >= 0, mids, torch.full_like(mids, s)) \
                 .to(torch.int64)
+            ldom = dom if tier == "fast" else dom.to(torch.int32)
             lib_ms = cuda_ms(lambda: torch.zeros(
-                (s + 1, w), dtype=dom.dtype, device=dev).index_add_(
-                    0, safe, dom), REPS)
+                (s + 1, w), dtype=ldom.dtype, device=dev).index_add_(
+                    0, safe, ldom), REPS)
+            del ldom
         out_bytes = sum(c.numel() * 4 for c in kern)
         kept = int((mids >= 0).sum())   # sentinel rows' values go unread
         bytes_ = n * 4 + kept * w * 4 + out_bytes
@@ -2492,6 +2890,9 @@ def main(argv=None) -> int:
           flush=True)
     kernels += serve_moe_phase(args.seed, dev, smi)
     print(f"elapsed after phase 14: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    kernels += serve_mla_phase(args.seed, dev, smi)
+    print(f"elapsed after phase 15: {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)

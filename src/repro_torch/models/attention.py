@@ -1,7 +1,8 @@
-"""Grouped-query attention (GQA) with a dense or a ring KV cache.
+"""Grouped-query attention (GQA) with a dense or a ring KV cache, and
+multi-head latent attention (MLA, DeepSeek-V2) with a latent cache.
 
-The PyTorch counterpart of the GQA part of the reference's
-``repro.models.attention``.  Three modes share one set of weights:
+The PyTorch counterpart of the reference's ``repro.models.attention``
+(its cross-attention excepted).  Three modes share one set of weights:
 
   * ``train`` / ``prefill``: full-sequence causal attention (``_sdpa``,
     or ``_sdpa_chunked`` over query blocks for long sequences), windowed
@@ -34,9 +35,22 @@ K2 takes contiguous float32, so ``model.init_caches`` makes the cache
 float32 whatever the model's dtype: widening bf16 keys and values is exact,
 so the cache holds the values the reference's bf16 cache holds, at twice
 the bytes.  Rows where ``active`` is False keep their cache and length
-(the reference engine's masking of idle slots).  The port has no MLA and
-no cross-attention: the model raises ``NotImplementedError`` for
-configurations that need them.
+(the reference engine's masking of idle slots).
+
+MLA (``MLA``, ``mla_apply``) keeps one latent per token instead of keys
+and values: the cache holds c_kv (B, T, r), the rmsnormed down-projection
+of the input, and k_rope (B, T, rd), one rotary key shared by every head,
+r + rd floats a token and layer (576 for deepseek-v2-lite-16b, against
+2 * H * hd = 4,096 for GQA at its width).  Train and prefill expand the
+latent into per-head keys and values (``wuk``, ``wuv``) and attend
+unabsorbed; decode, at s == 1 and for a chunked-prefill extend, runs
+absorbed in the latent space: ``wuk`` folded into the query, scores
+against c_kv and k_rope, ``p @ c_kv``, then ``wuv`` (``LatentAttention``).
+Both are float32 einsums, as the reference's are: K2 serves GQA only (its
+keys would be r + rd = 576 wide, its values r wide).  Absorbed and
+unabsorbed are one function rounded differently, so they agree to a
+tolerance.  The port has no cross-attention: the model raises
+``NotImplementedError`` for configurations that need it.
 """
 
 from __future__ import annotations
@@ -48,13 +62,19 @@ import torch.nn as nn
 
 from ..kernels import ops
 from .config import ModelConfig
-from .layers import (NEG, _param, apply_rope, causal_mask, dense,
+from .layers import (NEG, _param, apply_rope, causal_mask, dense, rmsnorm,
                      rope_tables)
 
 
 class KVCache(NamedTuple):
     k: torch.Tensor          # (B, S, K, hd), or (B, W, K, hd) for a ring
     v: torch.Tensor
+    length: torch.Tensor     # (B,) int32: tokens written so far
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor       # (B, T, r): the normed latent
+    k_rope: torch.Tensor     # (B, T, rd): the shared rotary key
     length: torch.Tensor     # (B,) int32: tokens written so far
 
 
@@ -231,4 +251,137 @@ def gqa_apply(p: GQA, x, cfg: ModelConfig, *, positions, mode: str = "train",
         raise ValueError(mode)
 
     out = out.to(x.dtype).reshape(b, s, h * hd)
+    return dense(p.wo, out), new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+class LatentAttention(nn.Module):
+    """Absorbed attention of ``s`` queries a row against a latent cache:
+    qn (B, s, H, nd) and qr (B, s, H, rd), the cache's c_kv (B, T, r) and
+    k_rope (B, T, rd), newpos (B, s) each query's position (it sees cache
+    rows 0..newpos) -> (B, s, H, vd) float32.  ``wuk`` (r, H*nd) is folded
+    into the query and ``wuv`` (r, H*vd) applied to ``p @ c_kv``, all in
+    float32 einsums in the reference's order.  A module of its own so
+    that a forward hook can read its inputs and output."""
+
+    def forward(self, qn, qr, c_kv, k_rope, newpos, wuk, wuv,
+                sm_scale: float):
+        r, t = c_kv.shape[-1], c_kv.shape[1]
+        h, nd = qn.shape[2], qn.shape[3]
+        cf = c_kv.float()
+        q_eff = torch.einsum("bshd,rhd->bshr", qn.float(),
+                             wuk.reshape(r, h, nd).float())
+        scores = (torch.einsum("bshr,btr->bhst", q_eff, cf)
+                  + torch.einsum("bshd,btd->bhst", qr.float(),
+                                 k_rope.float())) * sm_scale
+        valid = torch.arange(t, device=c_kv.device)[None, None, :] \
+            <= newpos[..., None]                                # (B, s, T)
+        mask = torch.where(valid, 0.0, NEG).to(torch.float32)
+        p = torch.softmax(scores + mask[:, None], dim=-1)
+        o_lat = torch.einsum("bhst,btr->bshr", p, cf)
+        return torch.einsum("bshr,rhd->bshd", o_lat,
+                            wuv.reshape(r, h, -1).float())
+
+
+class MLA(nn.Module):
+    """The weights of one MLA block, in the reference's (d_in, d_out)
+    layout (``mla_init``): wq (d, H*(nd+rd)), wdkv (d, r), wkr (d, rd),
+    wuk (r, H*nd), wuv (r, H*vd), wo (H*vd, d) and the latent's rmsnorm
+    gain c_norm (r,)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        d, h = cfg.d_model, cfg.n_heads
+        r, nd, rd, vd = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                         cfg.v_head_dim)
+        self.wq = _param((d, h * (nd + rd)), dtype, device)
+        self.wdkv = _param((d, r), dtype, device)
+        self.wkr = _param((d, rd), dtype, device)
+        self.wuk = _param((r, h * nd), dtype, device)
+        self.wuv = _param((r, h * vd), dtype, device)
+        self.wo = _param((h * vd, d), dtype, device)
+        self.c_norm = _param((r,), dtype, device)
+        self.latent_attn = LatentAttention()
+
+    def forward(self, x, *, positions, mode: str = "train",
+                cache: Optional[MLACache] = None,
+                active: Optional[torch.Tensor] = None, rope=None):
+        return mla_apply(self, x, self.cfg, positions=positions, mode=mode,
+                         cache=cache, active=active, rope=rope)
+
+
+def rope_dim(cfg: ModelConfig) -> int:
+    """The width RoPE rotates: MLA's ``qk_rope_dim``, else the head."""
+    return cfg.qk_rope_dim if cfg.attn_type == "mla" else cfg.hdim
+
+
+def mla_apply(p: MLA, x, cfg: ModelConfig, *, positions, mode: str = "train",
+              cache: Optional[MLACache] = None,
+              active: Optional[torch.Tensor] = None, rope=None):
+    """x (B, s, d) -> (out (B, s, d), new_cache).  ``rope``: the
+    ``rope_tables`` of ``positions`` at ``qk_rope_dim``, if the caller has
+    them.  Decode writes c_kv and k_rope at each row's own length and
+    attends absorbed (``LatentAttention``); rows where ``active`` is
+    False keep their cache and length."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    r, nd, rd, vd = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    sm_scale = (nd + rd) ** -0.5
+
+    if rope is None:
+        rope = rope_tables(positions, rd, cfg.rope_theta)
+    q = _split_heads(dense(p.wq, x), h, nd + rd)              # (B,s,H,nd+rd)
+    qn = q[..., :nd]
+    qr = apply_rope(q[..., nd:], positions, tables=rope)
+    c = rmsnorm(p.c_norm, dense(p.wdkv, x), cfg.norm_eps,
+                policy=cfg.norm_reduce_policy)                # (B,s,r)
+    kr = apply_rope(dense(p.wkr, x)[:, :, None, :], positions,
+                    tables=rope)[:, :, 0]                     # (B,s,rd)
+
+    new_cache = cache
+    if mode in ("train", "prefill"):
+        kn = _split_heads(dense(p.wuk, c), h, nd).float()     # (B,s,H,nd)
+        v = _split_heads(dense(p.wuv, c), h, vd).float()      # (B,s,H,vd)
+        krf = kr.float()
+
+        def block(qn_blk, qr_blk, offset):
+            sc = (torch.einsum("bshd,bthd->bhst", qn_blk, kn)
+                  + torch.einsum("bshd,btd->bhst", qr_blk, krf)) * sm_scale
+            sc = sc + causal_mask(qn_blk.shape[1], s, offset=offset,
+                                  device=x.device)[None, None]
+            return torch.einsum("bhst,bthd->bshd",
+                                torch.softmax(sc, dim=-1), v)
+
+        qnf, qrf = qn.float(), qr.float()
+        qchunk = cfg.attn_qchunk
+        if s > qchunk and s % qchunk == 0:
+            out = torch.cat([block(qnf[:, i:i + qchunk], qrf[:, i:i + qchunk],
+                                   i) for i in range(0, s, qchunk)], dim=1)
+        else:
+            out = block(qnf, qrf, 0)
+        if mode == "prefill":
+            new_cache = MLACache(c_kv=c, k_rope=kr, length=torch.full(
+                (b,), s, dtype=torch.int32, device=x.device))
+    elif mode == "decode":
+        if cache is None:
+            raise ValueError("mla_apply: mode='decode' needs a cache")
+        length = cache.length
+        newpos = length[:, None] + torch.arange(s, dtype=length.dtype,
+                                                device=x.device)[None, :]
+        _write_rows(cache.c_kv, newpos, c, active)
+        _write_rows(cache.k_rope, newpos, kr, active)
+        out = p.latent_attn(qn, qr, cache.c_kv, cache.k_rope, newpos,
+                            p.wuk, p.wuv, sm_scale)
+        step = s if active is None else s * active.to(length.dtype)
+        new_cache = MLACache(cache.c_kv, cache.k_rope, length + step)
+    else:
+        raise ValueError(mode)
+
+    out = out.to(x.dtype).reshape(b, s, h * vd)
     return dense(p.wo, out), new_cache

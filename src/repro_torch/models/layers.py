@@ -98,11 +98,13 @@ def dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def rmsnorm(g: torch.Tensor, x: torch.Tensor, eps: float = 1e-5, *,
-            policy: Optional[str] = None) -> torch.Tensor:
+            policy: Optional[str] = None,
+            backend: Optional[str] = None) -> torch.Tensor:
     """``policy=None``: the plain float32 mean square over the last axis.
     A policy name routes the per-token mean square through
     ``repro_torch.reduce`` instead (one (D, T) ``op="sumsq"`` pass, the
-    tokens as the element width), on x's device: K1 on a CUDA device."""
+    tokens as the element width), on x's device: K1 on a CUDA device;
+    ``backend`` picks another executor."""
     xf = x.float()
     if policy is None:
         var = torch.mean(xf * xf, dim=-1, keepdim=True)
@@ -111,7 +113,7 @@ def rmsnorm(g: torch.Tensor, x: torch.Tensor, eps: float = 1e-5, *,
         d = xf.shape[-1]
         cols = xf.reshape(-1, d).T.contiguous()              # (D, T)
         ssq = _reduce.reduce(cols, op="sumsq", policy=policy,
-                             device=x.device)
+                             backend=backend, device=x.device)
         var = (ssq / d).reshape(xf.shape[:-1] + (1,))
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * g
 

@@ -1,5 +1,5 @@
 """The language model: init, full-sequence forward, prefill and decode for
-the GQA-attention architectures, dense or with experts.
+the GQA- and MLA-attention architectures, dense or with experts.
 
 The PyTorch counterpart of the reference's ``repro.models.model``, written
 as ``nn.Module``s: ``LM`` holds the embedding, one ``Block`` per layer
@@ -8,20 +8,22 @@ rmsnorm) and the head.  The reference stacks each period position's parameters o
 ``n_periods`` axis and scans over it; here the layers are a plain loop
 (``_run_stack``), layer ``i * len(period) + j`` being period ``i``'s
 position ``j``.  The caches keep the reference's layout: one ``KVCache``
-per period position with a leading ``n_periods`` axis, so each layer's
-slice is contiguous; a sliding-window model's caches are rings of
-``cfg.window`` slots (``attention``).  ``moe_impl`` picks the MoE layers'
-dispatch (``moe.moe_apply``: ``capacity``, the default, or ``dense``, the
-serving engine's), and ``aux`` is their load-balancing loss, summed over
-the layers.
+(an ``MLACache`` for an MLA model) per period position with a leading
+``n_periods`` axis, so each layer's slice is contiguous; a sliding-window
+model's caches are rings of ``cfg.window`` slots (``attention``).  Code
+that handles caches reads their fields from the cache's own type.
+``moe_impl`` picks the MoE layers' dispatch (``moe.moe_apply``:
+``capacity``, the default, or ``dense``, the serving engine's), and
+``aux`` is their load-balancing loss, summed over the layers.
 
 ``loss_fn`` is the training objective (next-token cross-entropy in
 float32, sequence-chunked as the reference does); its gradients come from
 torch autograd, ``remat`` recomputing each block in the backward.
 
-The port runs GQA attention (MHA included) with a dense or a ring KV cache
-and a SwiGLU, GELU, MoE or no MLP.  A configuration that needs more raises
-``NotImplementedError`` naming what is missing (``unsupported``).
+The port runs GQA attention (MHA included) with a dense or a ring KV cache,
+or MLA with a latent cache, and a SwiGLU, GELU, MoE or no MLP.  A
+configuration that needs more raises ``NotImplementedError`` naming what
+is missing (``unsupported``).
 """
 
 from __future__ import annotations
@@ -43,8 +45,6 @@ from .layers import (SwiGLU, _param, embed_lookup, gelu_mlp, matmul_f32,
 def unsupported(cfg: ModelConfig) -> List[str]:
     """What ``cfg`` needs that the port's model lacks (empty: it runs)."""
     missing = []
-    if cfg.attn_type == "mla":
-        missing.append("mla (latent attention)")
     for kind in ("mamba", "mlstm", "slstm"):
         if any(sp.kind == kind for sp in cfg.period):
             missing.append(kind)
@@ -62,8 +62,9 @@ def check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: the PyTorch port has no {', '.join(missing)} yet; "
-            "it runs GQA attention models, dense or with experts, on "
-            "dense or ring caches (e.g. stablelm-1.6b, mixtral-8x22b)")
+            "it runs GQA attention models on dense or ring caches and MLA "
+            "models on latent caches, dense or with experts (e.g. "
+            "stablelm-1.6b, mixtral-8x22b, deepseek-v2-lite-16b)")
 
 
 # ---------------------------------------------------------------------------
@@ -88,7 +89,8 @@ class Block(nn.Module):
         super().__init__()
         self.cfg, self.spec = cfg, spec
         self.norm1 = _param((cfg.d_model,), dtype, device)
-        self.core = attn.GQA(cfg, dtype, device)
+        core = attn.MLA if cfg.attn_type == "mla" else attn.GQA
+        self.core = core(cfg, dtype, device)
         if spec.mlp == "moe":
             self.norm2 = _param((cfg.d_model,), dtype, device)
             self.mlp = moe_mod.MoE(cfg, dtype, device)
@@ -153,7 +155,9 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
     the reference draws them: the embedding N(0, 0.02^2), each projection
     N(0, 1/d_in) (an MoE router too, kept float32), the experts' ``wi``
     and ``wg`` N(0, 1/d) and ``wo`` N(0, 1/(f * v)) (``_init_scale``),
-    norms ones; drawn in float32, then cast to the parameter's dtype.  ``device=None`` means CUDA (``resolve_device``);
+    norms ones (MLA's latent ``c_norm`` too); drawn in float32, then cast
+    to the parameter's dtype.  ``device=None`` means CUDA
+    (``resolve_device``);
     ``device="meta"`` gives the shapes alone and allocates nothing (no
     generator needed).  The draws are made on the generator's device, so
     one generator state gives the same weights whatever ``device`` is."""
@@ -167,7 +171,7 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf.startswith("norm") or leaf == "final_norm":
+            if leaf.startswith("norm") or leaf.endswith("_norm"):
                 p.fill_(1.0)
                 continue
             scale = _init_scale(cfg, name, p)
@@ -222,8 +226,9 @@ def _apply_block(bp: Block, x, cfg: ModelConfig, *, positions, mode, cache,
 
 def _run_stack(model: LM, x, *, positions, mode, caches, active=None,
                remat: bool = False, moe_impl: str = "capacity"):
-    """Every layer in order.  ``caches``: one ``{"core": KVCache}`` per
-    period position, leaves with a leading ``n_periods`` axis, or None.
+    """Every layer in order.  ``caches``: one ``{"core": cache}`` per
+    period position (a ``KVCache`` or an ``MLACache``), leaves with a
+    leading ``n_periods`` axis, or None.
     ``remat`` (train mode, with autograd recording): each block runs under
     a non-reentrant ``torch.utils.checkpoint``, keeping only its input
     and recomputing the rest in the backward.
@@ -232,7 +237,7 @@ def _run_stack(model: LM, x, *, positions, mode, caches, active=None,
     reference."""
     cfg = model.cfg
     pattern = cfg.period
-    rope = rope_tables(positions, cfg.hdim, cfg.rope_theta)
+    rope = rope_tables(positions, attn.rope_dim(cfg), cfg.rope_theta)
     per_pos = [[] for _ in pattern]
     auxs = []
     for i in range(cfg.n_periods):
@@ -241,7 +246,7 @@ def _run_stack(model: LM, x, *, positions, mode, caches, active=None,
             c = None
             if caches is not None:
                 full = caches[j]["core"]
-                c = attn.KVCache(full.k[i], full.v[i], full.length[i])
+                c = type(full)(*(t[i] for t in full))
             block = model.blocks[i * len(pattern) + j]
             if remat and mode == "train" and torch.is_grad_enabled():
                 x, nc, a = checkpoint(block, x, positions=positions,
@@ -257,14 +262,12 @@ def _run_stack(model: LM, x, *, positions, mode, caches, active=None,
     for j, ncs in enumerate(per_pos):
         if ncs[0] is None:
             new_caches.append({"core": None})
-        elif mode == "decode":                 # k, v written in place
-            full = caches[j]["core"]
-            new_caches.append({"core": attn.KVCache(
-                full.k, full.v, torch.stack([c.length for c in ncs]))})
+        elif mode == "decode":                 # the rows written in place
+            new_caches.append({"core": caches[j]["core"]._replace(
+                length=torch.stack([c.length for c in ncs]))})
         else:
-            new_caches.append({"core": attn.KVCache(
-                *(torch.stack([getattr(c, f) for c in ncs])
-                  for f in attn.KVCache._fields))})
+            new_caches.append({"core": type(ncs[0])(
+                *(torch.stack(ts) for ts in zip(*ncs)))})
     return x, new_caches, torch.stack(auxs).sum()
 
 
@@ -387,21 +390,31 @@ def loss_fn(model: LM, batch, *, moe_impl: str = "capacity",
 
 def init_caches(cfg: ModelConfig, bsz: int, max_len: int, *, device=None,
                 dtype=torch.float32) -> list:
-    """Zeroed caches, one ``{"core": KVCache}`` per period position with a
-    leading ``n_periods`` axis: k, v (n, B, T, K, hd) in ``dtype``
-    (float32, the decode kernel's input, by default), length (n, B).
-    T is ``max_len``, or ``cfg.window`` for a sliding-window model (a
-    ring, whatever ``max_len`` is)."""
+    """Zeroed caches, one ``{"core": cache}`` per period position with a
+    leading ``n_periods`` axis, in ``dtype`` (float32, the decode kernel's
+    input, by default), length (n, B): a ``KVCache`` of k, v (n, B, T, K,
+    hd), T being ``max_len``, or ``cfg.window`` for a sliding-window model
+    (a ring, whatever ``max_len`` is); for an MLA model an ``MLACache`` of
+    c_kv (n, B, max_len, r) and k_rope (n, B, max_len, rd).  Widening a
+    narrow latent, key or value is exact, so a float32 cache holds what
+    the reference's cache in the model's dtype holds."""
     check_supported(cfg)
     dev = resolve_device(device)
     n = cfg.n_periods
-    slots = cfg.window if cfg.window is not None else max_len
-    shape = (n, bsz, slots, cfg.n_kv_heads, cfg.hdim)
-    return [{"core": attn.KVCache(
-        k=torch.zeros(shape, dtype=dtype, device=dev),
-        v=torch.zeros(shape, dtype=dtype, device=dev),
-        length=torch.zeros((n, bsz), dtype=torch.int32, device=dev))}
-        for _ in cfg.period]
+
+    def zeros(*shape):
+        return torch.zeros((n, bsz) + shape, dtype=dtype, device=dev)
+
+    def cache():
+        length = torch.zeros((n, bsz), dtype=torch.int32, device=dev)
+        if cfg.attn_type == "mla":
+            return attn.MLACache(zeros(max_len, cfg.kv_lora_rank),
+                                 zeros(max_len, cfg.qk_rope_dim), length)
+        slots = cfg.window if cfg.window is not None else max_len
+        shape = (slots, cfg.n_kv_heads, cfg.hdim)
+        return attn.KVCache(zeros(*shape), zeros(*shape), length)
+
+    return [{"core": cache()} for _ in cfg.period]
 
 
 def cache_bytes(caches) -> int:
@@ -410,18 +423,19 @@ def cache_bytes(caches) -> int:
 
 
 def pad_caches_to(cfg: ModelConfig, caches, max_len: int):
-    """Grow prefill-shaped KV caches (sequence axis == prefill length) to
-    ``max_len`` with zero rows so decode can append.  Ring caches are
-    ``cfg.window`` slots already and are left as they are."""
+    """Grow prefill-shaped caches (sequence axis == prefill length) to
+    ``max_len`` with zero rows so decode can append: a ``KVCache``'s k, v
+    (n, B, S, K, hd), an ``MLACache``'s c_kv, k_rope (n, B, S, .).  Ring
+    caches are ``cfg.window`` slots already and are left as they are."""
     if cfg.window is not None:
         return list(caches)
     out = []
     for c in caches:
         core = c["core"]
-        padn = max_len - core.k.shape[2]            # (n, B, S, K, hd)
+        padn = max_len - core[0].shape[2]
         if padn > 0:
-            core = attn.KVCache(*(torch.nn.functional.pad(
-                t, (0, 0, 0, 0, 0, padn)) for t in (core.k, core.v)),
+            core = type(core)(*(torch.nn.functional.pad(   # all but length
+                t, (0, 0) * (t.ndim - 3) + (0, padn)) for t in core[:-1]),
                 core.length)
         out.append({**c, "core": core})
     return out

@@ -18,9 +18,10 @@ slots masked (``active``: their caches and lengths stay as they were).
 Fixed shapes and row-parallel math make a request's logits bitwise
 independent of its batchmates, so greedy tokens are the same alone or
 batched.  On a CUDA device each decode step's attention is K2
-(``kernels.flash_decode``) in every layer, and ``mean_logprob`` is one
-segmented mean through ``repro_torch.reduce``: K1 on the ``cuda``
-backend.
+(``kernels.flash_decode``) in every layer of a GQA model (an MLA model
+decodes absorbed in its latent space, in float32 einsums), and
+``mean_logprob`` is one segmented mean through ``repro_torch.reduce``: K1
+on the ``cuda`` backend.
 
 Sampling differs from the reference in how, not in what it promises.  The
 reference derives each sample's key with ``jax.random.fold_in``, which
@@ -43,7 +44,6 @@ import torch
 
 from .. import reduce as _reduce
 from .. import resolve_device
-from ..models.attention import KVCache
 from ..models.config import ModelConfig
 from ..models.model import (LM, decode_step, forward, init_caches,
                             pad_caches_to)
@@ -141,10 +141,11 @@ class Engine:
         from ``start`` (pad tokens write past ``n_valid`` and are rolled
         back by setting the length), return the last valid position's
         logits (1, 1, V)."""
-        sub = [{"core": KVCache(
-            c["core"].k[:, slot:slot + 1], c["core"].v[:, slot:slot + 1],
-            torch.full_like(c["core"].length[:, slot:slot + 1], start))}
-            for c in self._caches]
+        sub = []
+        for c in self._caches:
+            view = type(c["core"])(*(t[:, slot:slot + 1] for t in c["core"]))
+            sub.append({"core": view._replace(
+                length=torch.full_like(view.length, start))})
         logits, _, _ = forward(self.model, tokens=toks, mode="decode",
                                caches=sub, position_offset=start,
                                moe_impl="dense")
@@ -159,9 +160,8 @@ class Engine:
                                  moe_impl="dense")
         sub = pad_caches_to(self.cfg, sub, self.max_len)
         for full, one in zip(self._caches, sub):
-            for f in KVCache._fields:
-                getattr(full["core"], f)[:, slot] = getattr(one["core"],
-                                                            f)[:, 0]
+            for t, u in zip(full["core"], one["core"]):
+                t[:, slot] = u[:, 0]
         return logits[:, -1:]
 
     def _sample(self, logits, custom, idv, steps, temps):

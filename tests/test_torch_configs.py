@@ -1,9 +1,10 @@
 """The port's configuration copies and model support against the
 reference, on the CPU: every architecture's CONFIG and SMOKE equal the
 reference's, the GQA ones (dense or with experts, dense or ring caches)
-build, the rest raise naming what the port lacks, and stablelm-1.6b's
-full-width parameter shapes match the reference's ``init_params`` (both
-abstract: nothing is allocated)."""
+and the MLA one build, the rest raise naming what the port lacks, and
+stablelm-1.6b's and deepseek-v2-lite-16b's full-width parameter shapes
+match the reference's ``init_params`` (both abstract: nothing is
+allocated)."""
 
 import dataclasses
 
@@ -25,10 +26,11 @@ ARCH = "stablelm-1.6b"
 @pytest.mark.parametrize("arch", RC.ARCH_IDS)
 def test_config_copy_and_model_support(arch):
     """CONFIG and SMOKE equal the reference's field for field; a GQA
-    model (mixtral-8x22b's experts included) builds on the meta device
-    (nothing allocated) with the reference's parameter count plus its
-    norms; any other configuration raises NotImplementedError naming
-    everything the port lacks."""
+    model (mixtral-8x22b's experts included) or an MLA one
+    (deepseek-v2-lite-16b) builds on the meta device (nothing allocated)
+    with the reference's parameter count plus its norms; any other
+    configuration raises NotImplementedError naming everything the port
+    lacks."""
     assert TC.ARCH_IDS == RC.ARCH_IDS
     for get in ("get_config", "get_smoke_config"):
         ref = getattr(RC, get)(arch)
@@ -43,6 +45,8 @@ def test_config_copy_and_model_support(arch):
     if not missing:
         model = TM.init_params(cfg, device="meta")
         norms = (2 * cfg.n_layers + 1) * cfg.d_model  # param_counts has none
+        if cfg.attn_type == "mla":                      # nor MLA's c_norm
+            norms += cfg.n_layers * cfg.kv_lora_rank
         assert sum(p.numel() for p in model.parameters()) \
             == cfg.param_counts()["total"] + norms
         return
@@ -55,34 +59,32 @@ def test_config_copy_and_model_support(arch):
 
 
 def test_unsupported_names_each_missing_kind():
-    """Experts and ring caches are ported: mixtral-8x22b runs,
-    deepseek-v2-lite-16b lacks MLA alone and jamba-v0.1-52b mamba
-    alone."""
-    want = {"deepseek-v2-lite-16b": {"mla (latent attention)"},
-            "xlstm-125m": {"mlstm", "slstm"},
+    """Experts, ring caches and MLA are ported: mixtral-8x22b and
+    deepseek-v2-lite-16b run, jamba-v0.1-52b lacks mamba alone."""
+    want = {"xlstm-125m": {"mlstm", "slstm"},
             "jamba-v0.1-52b": {"mamba"},
             "qwen2-vl-7b": {"embed_inputs", "mrope"},
             "seamless-m4t-large-v2": {"enc-dec"}}
     for arch, kinds in want.items():
         assert set(TM.unsupported(TC.get_config(arch))) >= kinds, arch
-    for arch in ("deepseek-v2-lite-16b", "jamba-v0.1-52b"):
-        assert set(TM.unsupported(TC.get_config(arch))) == want[arch]
-    for arch in (ARCH, "mixtral-8x22b"):
+    assert set(TM.unsupported(TC.get_config("jamba-v0.1-52b"))) \
+        == want["jamba-v0.1-52b"]
+    for arch in (ARCH, "mixtral-8x22b", "deepseek-v2-lite-16b"):
         assert TM.unsupported(TC.get_config(arch)) == []
 
 
-def test_full_width_shapes_on_meta_match_eval_shape():
-    """stablelm-1.6b's CONFIG: every parameter's shape and the count,
-    from a model on the meta device, against ``jax.eval_shape`` of the
-    reference's init_params.  Nothing is allocated on either side."""
-    cfg = RC.get_config(ARCH)
+def _meta_against_eval_shape(arch):
+    """{reference path: shape} of ``arch``'s CONFIG from ``jax.eval_shape``
+    of the reference's init_params and from the port's model on the meta
+    device, and the model.  Nothing is allocated on either side."""
+    cfg = RC.get_config(arch)
     abstract = jax.eval_shape(lambda key: RM.init_params(key, cfg),
                               jax.random.PRNGKey(0))
     ref = {"/".join(str(getattr(k, "key", getattr(k, "idx", k)))
                     for k in path): tuple(leaf.shape)
            for path, leaf in jax.tree_util.tree_flatten_with_path(
                abstract)[0]}
-    tcfg = TC.get_config(ARCH)
+    tcfg = TC.get_config(arch)
     model = TM.init_params(tcfg, device="meta")
     # the port's parameters in the reference tree's layout: layer l of
     # period position j stacked under "blocks/j" (one position here)
@@ -93,9 +95,38 @@ def test_full_width_shapes_on_meta_match_eval_shape():
             got[name] = tuple(p.shape)
         elif parts[1] == "0":
             got["/".join(parts)] = (tcfg.n_periods,) + tuple(p.shape)
+    return ref, got, model
+
+
+def test_full_width_shapes_on_meta_match_eval_shape():
+    """stablelm-1.6b's CONFIG: every parameter's shape and the count,
+    from a model on the meta device, against ``jax.eval_shape`` of the
+    reference's init_params."""
+    ref, got, model = _meta_against_eval_shape(ARCH)
     assert got == ref
     assert all(p.device.type == "meta" for p in model.parameters())
     n = sum(p.numel() for p in model.parameters())
     assert n == sum(int(np.prod(s)) for s in ref.values()) == 1644267520
     assert TM.param_bytes(model) == 2 * n                    # bf16
     assert {p.dtype for p in model.parameters()} == {torch.bfloat16}
+
+
+def test_deepseek_full_width_shapes_on_meta_match_eval_shape():
+    """deepseek-v2-lite-16b's CONFIG at all 27 layers (MLA with its
+    latent norm, 64 routed experts, 2 shared, an f32 router): every
+    parameter's shape against ``jax.eval_shape`` of the reference's
+    init_params; 16,210,198,528 parameters by ``param_counts`` (norms
+    not counted), the same plus the 55 d_model norms and 27 latent norms
+    on both sides."""
+    ref, got, model = _meta_against_eval_shape("deepseek-v2-lite-16b")
+    assert got == ref
+    assert {"blocks/0/core/c_norm", "blocks/0/core/wuk",
+            "blocks/0/mlp/router"} <= set(got)
+    cfg = TC.get_config("deepseek-v2-lite-16b")
+    assert cfg.param_counts()["total"] == 16_210_198_528
+    norms = 55 * cfg.d_model + 27 * cfg.kv_lora_rank
+    n = sum(p.numel() for p in model.parameters())
+    assert n == sum(int(np.prod(s)) for s in ref.values()) \
+        == 16_210_198_528 + norms
+    routers = 27 * cfg.d_model * cfg.moe.num_experts          # float32
+    assert TM.param_bytes(model) == 2 * (n - routers) + 4 * routers

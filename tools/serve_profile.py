@@ -2,11 +2,13 @@
 """Where a serving step's time goes on the GPU.
 
     python3 tools/serve_profile.py [--seed 0] [--steps 4]   # needs CUDA
+    python3 tools/serve_profile.py --arch deepseek-v2-lite-16b --max-len 4096
 
-Builds stablelm-1.6b at full width (bf16, random weights from ``--seed``)
-and ``chip_smoke.py``'s serving engine (8 slots x 1,024 context, 32-token
-prefill chunks), fills the slots with one ``generate`` of 8 prompts of
-64-768 tokens, then times and profiles, each after a warm-up:
+Builds ``--arch`` at full width (stablelm-1.6b by default; bf16, random
+weights from ``--seed``) and ``chip_smoke.py``'s serving engine (8 slots
+x ``--max-len`` context, 32-token prefill chunks, the dense MoE), fills
+the slots with one ``generate`` of 8 prompts of 64-768 tokens, then times
+and profiles, each after a warm-up:
 
   * a decode step of all 8 slots (``decode_step`` with every row active,
     each call writing the same cache row);
@@ -76,6 +78,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--top", type=int, default=14)
+    ap.add_argument("--arch", default="stablelm-1.6b")
+    ap.add_argument("--max-len", type=int, default=1024)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -89,12 +93,12 @@ def main(argv=None) -> int:
                          text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     dev = torch.device("cuda")
-    cfg = get_config("stablelm-1.6b")
+    cfg = get_config(args.arch)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     model = M.init_params(cfg, generator=gen, device=dev)
-    eng = Engine(cfg, model, max_len=1024, max_batch=8, prefill_chunk=32,
-                 device=dev)
+    eng = Engine(cfg, model, max_len=args.max_len, max_batch=8,
+                 prefill_chunk=32, device=dev)
     host = torch.Generator()
     host.manual_seed(args.seed + 1)
     lens = torch.randint(64, 769, (8,), generator=host).tolist()
@@ -109,8 +113,8 @@ def main(argv=None) -> int:
     print(f"prompts {lens}; cache lengths {lengths.tolist()}", flush=True)
     with torch.no_grad():
         profile("decode step (B=8)", lambda: M.decode_step(
-            model, toks, eng._caches, lengths, active=active), args.steps,
-            args.top)
+            model, toks, eng._caches, lengths, active=active,
+            moe_impl="dense"), args.steps, args.top)
         profile("prefill chunk (32 tokens)", lambda: eng._prefill_chunk(
             0, chunk, 0, 32), args.steps, args.top)
     return 0
