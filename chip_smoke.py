@@ -18,11 +18,12 @@ on K1; AdamW), then its train state checkpointed and resumed
 (``repro_torch.ckpt``), and the streaming accumulators at the INTAC
 shape.  Then mixtral-8x22b at full width (8 of its 56 layers) served
 through the same ``Engine`` on sliding-window ring caches, its experts
-through the dense MoE.  Last, deepseek-v2-lite-16b whole (all 27 layers,
+through the dense MoE.  Then deepseek-v2-lite-16b whole (all 27 layers,
 full width) served through the ``Engine`` on latent caches, its
-multi-head latent attention decoding absorbed.  All data is drawn from
-``--seed``.  Phases, in order; any
-failure exits nonzero:
+multi-head latent attention decoding absorbed.  Last, jamba-v0.1-52b at
+full width (16 of its 32 layers) served through the ``Engine``: Mamba
+blocks on O(1) states beside GQA attention on K2.  All data is drawn
+from ``--seed``.  Phases, in order; any failure exits nonzero:
 
 1. device — the card's name and power limit, as nvidia-smi prints them;
 2. build  — every CUDA source, one nvcc each, in parallel;
@@ -154,7 +155,27 @@ failure exits nonzero:
    experts (no router choice to flip); timings: a
    decode step against the weights' bound, a prefill chunk, generated
    tokens/s, the absorbed decode attention a layer, the cache bytes
-   beside a GQA cache's, peak memory.
+   beside a GQA cache's, peak memory;
+16. serve-hybrid — jamba-v0.1-52b's ``CONFIG`` at full width cut to 16
+   of 32 layers, two whole periods (14 Mamba layers, attention at layers
+   4 and 12, 8 MoE layers; random weights from the seed, 52.11 GB),
+   through ``Engine(max_len=5120, max_batch=8)`` (whole-prompt prefill,
+   the dense MoE), 8 greedy requests of 32 new tokens (six prompts of
+   64-768 tokens, one of 4,096 and one of 2,600): every result complete
+   and in order; K2 launched once an attention layer at every decode step
+   and K1 once (counts set to 0 just before the run, read just after);
+   K2 bitwise its plain version on the engine's own cache and query in
+   layer 12; a decode step with two slots inactive keeps their Mamba
+   states, attention rows and lengths bitwise while the others move; the
+   4,096 request alone gives bitwise its batched tokens; layer 0's
+   chunked scan over that prompt within ``HYB_SCAN_BOUND`` of a float64
+   sequential recurrence; its last decode logits within
+   ``HYB_LOGIT_BOUND`` of a cache-free forward in bf16, and within
+   ``HYB_F32_BOUND`` in float32 weights with dense SwiGLUs in place of
+   the experts; timings: a decode step against the weights' bound, the
+   whole-prompt prefills at 4,096 and 2,600, a Mamba layer's decode and
+   prefill, K2 per layer against its bound and SDPA, generated tokens/s,
+   the parameter and cache bytes, peak memory.
 
 Times are CUDA-event medians after a warm-up (plain versions: one
 host-clock run; K1 on the train path: the sum over a step's launches,
@@ -311,6 +332,55 @@ MLA_LOGIT_BOUND = 1.5
 #: any wrong latent row, position, RoPE slice, mask or absorption moves
 #: the logits far past this bound
 MLA_F32_BOUND = 1e-3
+#: the serve-hybrid phase: jamba-v0.1-52b's published CONFIG (src/
+#: repro_torch/configs/jamba_v0_1_52b.py, arXiv:2403.19887) at full width
+#: (d_model 4,096, Mamba di 8,192, d_state 16, d_conv 4; 32 heads, 8 kv;
+#: 16 experts top-2 of d_ff 14,336; vocab 65,536; bf16), cut to 16 of its
+#: 32 layers: two whole periods of 8, so 14 Mamba layers, attention at
+#: layers 4 and 12 and 8 MoE layers, 26,053,595,136 parameters (52.11 GB
+#: with the f32 leaves); 32 layers are 103.15 GB and do not fit, 24 would
+#: be 77.6 GB and leave no room to run.  8 slots of 5,120 context: f32 KV
+#: for the two attention layers (0.671 GB) and a fixed Mamba state a
+#: layer (14 x 8 x (8,192 x 16 + 3 x 8,192) x 4 B = 69.7 MB).  8 greedy
+#: requests of 32 new tokens, all prefilled whole: six prompts in [64,
+#: 768], one of 4,096 tokens (8 full scan chunks of 512, 4 attention
+#: query chunks) and one of 2,600 (its last scan chunk 40 rows)
+HYB_ARCH, HYB_LAYERS, HYB_LEN, HYB_SLOTS, HYB_NEW = \
+    "jamba-v0.1-52b", 16, 5120, 8, 32
+HYB_PROMPTS, HYB_LONG = (64, 768), (4096, 2600)
+#: decode step whose K2 inputs are captured in layer 12
+HYB_TAP_STEP = 24
+#: slots held inactive in the masked decode step (check 5)
+HYB_FROZEN = (1, 5)
+#: layer 0's chunked scan on the 4,096 prompt against a float64
+#: sequential recurrence, max |diff| / max |ref| of y and of the final h.
+#: The doubling tree is log2(512) = 9 combines deep, each a float32
+#: multiply and add (u = 2^-24 relative each), on decay and drive that
+#: carry about 4 roundings of their own (two products, exp at 2 ulps on
+#: the card, one more product): at most 2 x 9 + 4 = 22 u, 1.3e-6 of an
+#: element when nothing cancels, and y's sum over d_state = 16 adds 4
+#: levels more.  The state forgets (decay < 1), so the carry across the 8
+#: chunks adds little.  4e-6 (about 64 u) leaves room for that; a wrong
+#: carry, order or decay moves y by a tenth of its size or more
+HYB_SCAN_BOUND = 4e-6
+#: the 4,096-token request's last decode logits against a cache-free
+#: forward over its tokens, max |diff| / std, in bf16.  The two paths
+#: round bf16 activations after different f32 sums (1-row against
+#: 5,120-row products, K2's splits against chunked softmax, the Mamba
+#: recurrence against the chunked scan), and a few router probabilities
+#: then cross: with top-2 of 16 experts in 8 layers a flipped choice
+#: moves the logits by a share of their spread, as in phase 15 (three
+#: flips, 0.589).  Unrelated logits lie about 6 std apart, so this bound
+#: catches gross faults (a wrong state, cache row, position or period
+#: index); the float32 check below catches the rest
+HYB_LOGIT_BOUND = 1.0
+#: the same comparison with float32 weights at full width and all 16
+#: layers, the experts replaced by dense SwiGLUs of d_ff 14,336 (4.91B
+#: parameters, 19.66 GB): no bf16 rounding and no router, so prefill's
+#: chunked scan and decode's recurrence are one function summed in
+#: another order across 14 Mamba layers, a few float32 ulps a layer; as
+#: MLA_F32_BOUND
+HYB_F32_BOUND = 1e-3
 
 
 def fail(msg: str) -> int:
@@ -2592,6 +2662,425 @@ def mla_f32_check(cfg, request, seed, dev, smi):
     torch.cuda.empty_cache()
 
 
+def serve_hybrid_phase(seed, dev, smi):
+    """Phase 16: jamba-v0.1-52b at full width, cut to ``HYB_LAYERS``
+    layers, served through the port's ``Engine``: Mamba states and dense
+    KV caches, whole-prompt prefill; returns the kernel entries of K2 in
+    the attention layers and of K1 on ``mean_logprob``."""
+    import dataclasses
+    import gc
+    import importlib
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import dense
+    from repro_torch.serve import Engine, Request
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    cfg = dataclasses.replace(get_config(HYB_ARCH), n_layers=HYB_LAYERS)
+    per = len(cfg.period)
+    mamba_pos = [j for j, sp in enumerate(cfg.period) if sp.kind == "mamba"]
+    attn_pos = [j for j, sp in enumerate(cfg.period) if sp.kind == "attn"]
+    attn_layers = [i * per + j for i in range(cfg.n_periods)
+                   for j in attn_pos]
+    n_mamba = len(mamba_pos) * cfg.n_periods
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 41)
+    t_phase = time.perf_counter()
+    model = M.init_params(cfg, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_phase
+    param_bytes = M.param_bytes(model)
+    weights_gb = param_bytes / 1e9
+    host = torch.Generator()
+    host.manual_seed(seed + 42)
+    lens = torch.randint(HYB_PROMPTS[0], HYB_PROMPTS[1] + 1,
+                         (HYB_SLOTS - len(HYB_LONG),),
+                         generator=host).tolist() + list(HYB_LONG)
+    requests = [Request(prompt=torch.randint(1, cfg.vocab, (n,),
+                                             generator=host).tolist(),
+                        max_new_tokens=HYB_NEW) for n in lens]
+    four_k, ragged = HYB_SLOTS - 2, HYB_SLOTS - 1
+    m = cfg.mamba
+    print(f"serve-hybrid: {cfg.name} at full width (d_model {cfg.d_model},"
+          f" Mamba di {m.expand * cfg.d_model} d_state {m.d_state} d_conv "
+          f"{m.d_conv}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, d_ff "
+          f"{cfg.moe.d_ff_expert}, vocab {cfg.vocab}, {cfg.dtype}), "
+          f"{cfg.n_layers} of 32 layers ({n_mamba} Mamba, attention at "
+          f"layers {attn_layers}): "
+          f"{sum(p.numel() for p in model.parameters())} parameters "
+          f"({param_bytes} bytes by param_bytes, {weights_gb:.3f} GB) drawn "
+          f"in {init_s:.2f} s ({held / 2 ** 30:.2f} GiB held before); "
+          f"{HYB_SLOTS} slots x {HYB_LEN} context, whole-prompt prefill; "
+          f"prompts {lens}, {HYB_NEW} new tokens each, greedy", flush=True)
+
+    def engine():
+        return Engine(cfg, model, max_len=HYB_LEN, max_batch=HYB_SLOTS,
+                      logprob_policy="compensated", device=dev)
+
+    # taps: decode steps seen by the first attention layer; the last
+    # attention layer's K2 inputs and output at one step; layer 0's Mamba
+    # input in the 4,096-token prefill; the last decode-step logits
+    tap = {"steps": 0, "mid": 0, "logits": None}
+
+    def count_steps(mod, args, out):
+        tap["steps"] += 1
+
+    def capture(mod, args, out):
+        tap["mid"] += 1
+        if tap["mid"] == HYB_TAP_STEP:
+            q, k, v, kv_len, sc = args
+            tap.update(q=q.clone(), k=k.clone(), v=v.clone(),
+                       kv_len=kv_len.clone(), sc=sc, out=out.clone())
+
+    def mamba_input(mod, args, kwargs):
+        if args[0].shape[1] == HYB_LONG[0] and "x0" not in tap:
+            tap["x0"] = args[0].clone()
+
+    def last_logits(mod, args, kwargs, out):
+        if kwargs.get("mode") == "decode" and args[0].shape[1] == 1:
+            tap["logits"] = out[0][:, 0].clone()
+
+    hooks = [model.blocks[attn_layers[0]].core.decode_attn
+             .register_forward_hook(count_steps),
+             model.blocks[attn_layers[-1]].core.decode_attn
+             .register_forward_hook(capture),
+             model.blocks[0].core.register_forward_pre_hook(
+                 mamba_input, with_kwargs=True),
+             model.register_forward_hook(last_logits, with_kwargs=True)]
+
+    # the main path: counts set to 0 just before, read just after
+    eng = engine()
+    slot_of, stream = {}, {}
+
+    def on_step(e, step):
+        slot_of.update((tr.rid, tr.slot)
+                       for tr in e.scheduler.in_state("decode"))
+        stream["vals"], stream["ids"] = list(e._lp_vals), list(e._lp_ids)
+
+    rids = [eng.submit(r) for r in requests]
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.run(on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    for hk in hooks:
+        hk.remove()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = tap["steps"]
+    new = sum(len(r.tokens) - r.prompt_len for r in results)
+    n_attn = len(attn_layers)
+    print(f"main serve-hybrid: {len(results)} results in order "
+          f"{[r.rid for r in results]}, {new} tokens, {steps} decode steps "
+          f"in {wall * 1e3:.1f} ms; launches {launches} (K2 want {steps} x "
+          f"{n_attn}, K1 want 1); peak memory {peak_gb:.2f} GiB; "
+          f"mean_logprob {[round(r.mean_logprob, 4) for r in results]}",
+          flush=True)
+    check([r.rid for r in results] == rids
+          and all(len(r.tokens) - r.prompt_len == HYB_NEW
+                  and r.tokens[:r.prompt_len] == q.prompt
+                  and all(0 <= t < cfg.vocab for t in r.tokens)
+                  and math.isfinite(r.mean_logprob)
+                  for r, q in zip(results, requests)),
+          "serve-hybrid: results out of order, short, out of the "
+          "vocabulary or with a non-finite mean_logprob")
+    check(steps >= HYB_NEW - 1
+          and launches == {"K1": 1, "K2": steps * n_attn, "K3": 0,
+                           "K4": 0, "K5": 0},
+          f"serve-hybrid: launches {launches} for {steps} decode steps")
+
+    # K2 against its plain version on the engine's own cache and query,
+    # in the last attention layer at one decode step
+    q, k, v, kv_len, sc = (tap[x] for x in ("q", "k", "v", "kv_len", "sc"))
+    qf = q.float().contiguous()
+    bias = ops.length_bias(kv_len, k.shape[1], None, dev)
+    plain_ms, plain = host_ms(lambda: fd.flash_decode_torch(
+        qf, k, v, bias, sm_scale=sc, block_kv=512))
+    kern = fd.flash_decode_cuda(qf, k, v, bias, sm_scale=sc, block_kv=512)
+    ok, k2_err = same(kern, plain)
+    ok_engine = torch.equal(kern, tap["out"])
+    print(f"check K2 (layer {attn_layers[-1]}, decode step {HYB_TAP_STEP}: "
+          f"cache {tuple(k.shape)} {k.dtype}, kv_len {kv_len.tolist()}): "
+          f"max|kernel-plain|={k2_err:g} {'bitwise' if ok else 'DIFFER'}; "
+          f"the engine's own output {'bitwise' if ok_engine else 'DIFFER'}",
+          flush=True)
+    check(ok and ok_engine, "serve-hybrid: K2 differs from its plain "
+                            "version on the engine's cache")
+    k2_ms = cuda_ms(lambda: fd.flash_decode_cuda(
+        qf, k, v, bias, sm_scale=sc, block_kv=512), REPS)
+    rows = int(kv_len.sum())
+    kh, d = k.shape[2], k.shape[3]
+    h = q.shape[1]
+    k2_bytes = rows * (2 * kh * d * 4 + 4) + 2 * q.numel() * 4
+    k2_ops = rows * h * (4 * d + 1)
+    k2_bound = max(k2_bytes / HBM_BYTES_PER_S,
+                   k2_ops / FP32_OPS_PER_S) * 1e3
+    k4 = k.permute(0, 2, 1, 3).contiguous()
+    v4 = v.permute(0, 2, 1, 3).contiguous()
+    mask = bias[:, None, None, :]
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qf[:, :, None], k4, v4, attn_mask=mask, scale=sc, enable_gqa=True),
+        REPS)
+    del k4, v4, mask, q, k, v, qf, bias, kern, plain
+    tap.update(q=None, k=None, v=None, out=None)
+    entries = [{
+        "name": "flash_decode_kernel<dense>/serve-hybrid", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:72",
+        "launches": launches["K2"], "max_abs_err": k2_err, "ms": k2_ms,
+        "plain_ms": plain_ms, "bound_ms": k2_bound,
+        "bound_by": ("bytes" if k2_bytes / HBM_BYTES_PER_S
+                     >= k2_ops / FP32_OPS_PER_S else "operations"),
+        "library_ms": sdpa_ms}]
+
+    # K1 at the mean_logprob shape: the run's (step x slot) stream
+    vals = torch.cat(stream["vals"])[:, None]
+    ids = torch.from_numpy(np.concatenate(stream["ids"])).to(dev)
+    nseg = len(requests)
+    safe = torch.where((ids >= 0) & (ids < nseg), ids,
+                       torch.full_like(ids, nseg)).to(torch.int64)
+    entries.append(dict(k1_entry(
+        "serve-hybrid", vals, ids, nseg, "compensated", smi,
+        lambda: torch.zeros((nseg + 1, 1), device=dev).index_add_(
+            0, safe, vals), op="mean"), launches=launches["K1"]))
+    del vals, ids, safe
+
+    # one decode step on the engine's own caches with two slots inactive:
+    # their Mamba states, attention rows and lengths stay bitwise, the
+    # other slots' states move
+    caches = eng._caches
+    frozen = list(HYB_FROZEN)
+    live = [s for s in range(HYB_SLOTS) if s not in frozen]
+    before = {j: tuple(t[:, frozen].clone() for t in caches[j]["core"])
+              for j in mamba_pos + attn_pos}
+    live_h = {j: caches[j]["core"].h[:, live].clone() for j in mamba_pos}
+    lengths = caches[attn_pos[0]]["core"].length[0].clone()
+    toks = torch.tensor([[r.tokens[-1]] for r in results], device=dev)
+    active = torch.ones(HYB_SLOTS, dtype=torch.bool, device=dev)
+    active[frozen] = False
+    with torch.no_grad():
+        _, stepped = M.decode_step(model, toks, caches, lengths,
+                                   active=active, moe_impl="dense")
+    kept = all(torch.equal(a, b[:, frozen]) for j in mamba_pos
+               for a, b in zip(before[j], caches[j]["core"]))
+    kept_attn = all(
+        torch.equal(before[j][0], caches[j]["core"].k[:, frozen])
+        and torch.equal(before[j][1], caches[j]["core"].v[:, frozen])
+        and torch.equal(before[j][2], stepped[j]["core"].length[:, frozen])
+        for j in attn_pos)
+    moved = all(not torch.equal(live_h[j][:, i], caches[j]["core"].h[:,
+                                                                      s])
+                for j in mamba_pos for i, s in enumerate(live))
+    grown = all(torch.equal(stepped[j]["core"].length[:, live],
+                            caches[j]["core"].length[:, live] + 1)
+                for j in attn_pos)
+    print(f"check a decode step with slots {frozen} inactive: their h and "
+          f"conv in all {n_mamba} Mamba layers "
+          f"{'bitwise unchanged' if kept else 'CHANGED'}, their attention "
+          f"rows and lengths {'bitwise unchanged' if kept_attn else 'CHANGED'}"
+          f"; every active slot's h {'moved' if moved else 'DID NOT MOVE'} "
+          f"and its length {'grew by 1' if grown else 'DID NOT GROW'}",
+          flush=True)
+    check(kept and kept_attn and moved and grown,
+          "serve-hybrid: the active mask does not hold")
+    del before, live_h, stepped
+
+    # timings on the engine's state: every slot active (each call writes
+    # the same attention row; the Mamba states step on from call to call)
+    active = torch.ones(HYB_SLOTS, dtype=torch.bool, device=dev)
+    x0 = tap.pop("x0")
+    layers = [i * per + j for i in range(cfg.n_periods) for j in mamba_pos]
+    xd = x0[:, -HYB_SLOTS:].reshape(HYB_SLOTS, 1, cfg.d_model).contiguous()
+    with torch.no_grad():
+        step_ms = cuda_ms(lambda: M.decode_step(
+            model, toks, caches, lengths, active=active,
+            moe_impl="dense"), REPS)
+        prefill_ms = {}
+        for i in (four_k, ragged):
+            ptoks = torch.tensor([requests[i].prompt], device=dev)
+            prefill_ms[lens[i]] = cuda_ms(
+                lambda: eng._classic_prefill(i, ptoks), 3)
+        dec_ms, pre_ms = [], []
+        for layer in layers:
+            core = model.blocks[layer].core
+            full = caches[layer % per]["core"]
+            view = type(full)(*(t[layer // per] for t in full))
+            dec_ms.append(cuda_ms(lambda: core(
+                xd, mode="decode", cache=view, active=active), REPS))
+            pre_ms.append(cuda_ms(lambda: core(x0, mode="prefill"), 3))
+    mamba_dec, mamba_pre = sum(dec_ms) / len(dec_ms), \
+        sum(pre_ms) / len(pre_ms)
+    state_b = sum(t.numel() * t.element_size() for j in mamba_pos
+                  for t in caches[j]["core"])
+    kv_b = sum(t.numel() * t.element_size() for j in attn_pos
+               for t in caches[j]["core"])
+    gqa_gb = (cfg.n_layers * HYB_SLOTS * HYB_LEN * 2 * cfg.n_kv_heads
+              * cfg.hdim * 4) / 1e9
+    print(f"time serve-hybrid: decode step at B={HYB_SLOTS} {step_ms:.3f} "
+          f"ms (bound {weights_gb * 1e9 / HBM_BYTES_PER_S * 1e3:.3f} ms: "
+          f"the weights once over 3.35 TB/s, the dense MoE reading every "
+          f"expert; {HYB_SLOTS * 1e3 / step_ms:.1f} tokens/s decoding) | "
+          f"whole-prompt prefill "
+          + ", ".join(f"{n} tokens {ms:.1f} ms" for n, ms in
+                      prefill_ms.items())
+          + f" | a Mamba layer (mean of {len(layers)}, CUDA events): decode "
+          f"at B={HYB_SLOTS} {mamba_dec:.4f} ms ({len(layers)} layers "
+          f"{len(layers) * mamba_dec:.3f} ms = "
+          f"{len(layers) * mamba_dec / step_ms:.3f} of a step), prefill at "
+          f"{x0.shape[1]} tokens {mamba_pre:.3f} ms (range "
+          f"{min(pre_ms):.3f}-{max(pre_ms):.3f}) | the run: {new} tokens in "
+          f"{wall * 1e3:.1f} ms ({new / wall:.1f} generated tokens/s, "
+          f"prefill included) | K2 per attention layer per step "
+          f"{k2_ms:.4f} ms, bound {k2_bound:.4f} ms ({k2_bytes / 1e6:.2f} "
+          f"MB: the live KV rows), plain {plain_ms:.1f} ms, SDPA "
+          f"{sdpa_ms:.4f} ms | weights {weights_gb:.3f} GB; caches "
+          f"{M.cache_bytes(caches) / 1e9:.3f} GB: Mamba states "
+          f"{state_b / 1e6:.1f} MB, the {n_attn} attention layers' f32 KV "
+          f"{kv_b / 1e9:.3f} GB (GQA caches for all {cfg.n_layers} layers "
+          f"{gqa_gb:.2f} GB); peak {peak_gb:.2f} GiB | {smi}", flush=True)
+    del xd, eng, caches, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # layer 0's chunked scan on the 4,096 prompt against a float64
+    # sequential recurrence on the card
+    core = model.blocks[0].core
+    with torch.no_grad():
+        di = core.conv_b.shape[0]
+        xi, _ = dense(core.in_proj, x0).split(di, dim=-1)
+        xpad = torch.cat([xi.new_zeros((1, m.d_conv - 1, di)), xi], dim=1)
+        xc = F.silu(ssm._depthwise_conv(xpad, core.conv_w, core.conv_b))
+        dt, bm, cm = ssm._mamba_gates(core, xc.to(x0.dtype), m)
+        a = torch.exp(core.a_log)
+        y, h_n = ssm.mamba_scan(xc, dt, bm, cm, a, cfg.scan_chunk)
+        a64, h64 = a.double(), torch.zeros_like(h_n, dtype=torch.float64)
+        dt64, xc64, b64, c64 = (t[0].double() for t in (dt, xc, bm, cm))
+        y64 = torch.empty_like(xc64)
+        for t in range(xc64.shape[0]):
+            h64 = torch.exp(dt64[t, :, None] * -a64) * h64 \
+                + (dt64[t] * xc64[t])[:, None] * b64[t, None, :]
+            y64[t] = (h64[0] * c64[t]).sum(-1)
+    y_rel = float((y[0].double() - y64).abs().max() / y64.abs().max())
+    h_rel = float((h_n.double() - h64).abs().max() / h64.abs().max())
+    print(f"check layer 0's chunked scan over the {xc.shape[1]}-token "
+          f"prompt ({xc.shape[1] // cfg.scan_chunk} chunks of "
+          f"{cfg.scan_chunk}, di {di}, d_state {m.d_state}) vs a float64 "
+          f"sequential recurrence: max|diff| / max|ref| y {y_rel:.3g}, final "
+          f"h {h_rel:.3g} (bound {HYB_SCAN_BOUND:g}); dt in "
+          f"[{float(dt.min()):.3g}, {float(dt.max()):.3g}] | {smi}",
+          flush=True)
+    check(y_rel <= HYB_SCAN_BOUND and h_rel <= HYB_SCAN_BOUND,
+          "serve-hybrid: the chunked scan is outside its bound of the "
+          "float64 recurrence")
+    del x0, xi, xpad, xc, dt, bm, cm, y, h_n, y64, h64, dt64, xc64, b64, c64
+
+    # batch independence: the 4,096-token request alone in a fresh Engine
+    alone = engine().generate([requests[four_k]])[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    same_toks = alone.tokens == results[four_k].tokens
+    print(f"check request {four_k} (prompt {lens[four_k]}) alone vs in the "
+          f"batch: tokens {'bitwise' if same_toks else 'DIFFER'}", flush=True)
+    check(same_toks, f"serve-hybrid: request {four_k} depends on its batch")
+
+    # the 4,096-token request's last decode logits against a cache-free
+    # forward over its tokens, padded to 5,120 (causal: the padding is
+    # never seen) so that its attention takes the chunked path
+    seq = results[four_k].tokens[:-1]
+    pad = -len(seq) % cfg.attn_qchunk
+    with torch.no_grad():
+        full = M.forward(model, tokens=torch.tensor(
+            [seq + [0] * pad], device=dev), mode="train",
+            moe_impl="dense")[0]
+    ref = full[0, len(seq) - 1]
+    del full
+    got = tap["logits"][slot_of[four_k]]
+    rel = float((got - ref).abs().max() / ref.std())
+    agree = int(got[:cfg.vocab].argmax()) == int(ref[:cfg.vocab].argmax())
+    print(f"check request {four_k}'s last decode step (position "
+          f"{len(seq) - 1}, slot {slot_of[four_k]}) vs a cache-free forward "
+          f"over its {len(seq)} tokens (+{pad} padding): max|diff| / "
+          f"std(logits) = {rel:.5f} (bound {HYB_LOGIT_BOUND}), std "
+          f"{float(ref.std()):.4f}, argmax {'agrees' if agree else 'differs'}"
+          f" | phase {time.perf_counter() - t_phase:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | {smi}",
+          flush=True)
+    check(bool(torch.isfinite(got).all()) and rel <= HYB_LOGIT_BOUND,
+          "serve-hybrid: decode logits outside the bound of the cache-free "
+          "forward")
+    del model, results, got, ref, tap
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid_f32_check(cfg, requests[four_k], seed, dev, smi)
+    print(f"serve-hybrid: the phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return entries
+
+
+def hybrid_f32_check(cfg, request, seed, dev, smi):
+    """Phase 16's float32 check: ``request`` through a fresh ``Engine``
+    on ``cfg`` in float32 weights at full width and all its layers, the
+    experts replaced by dense SwiGLUs of ``cfg.d_ff`` (every Mamba and
+    attention layer kept); the last decode step's logits against a
+    cache-free forward, max |diff| / std within ``HYB_F32_BOUND``."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.config import BlockSpec
+    from repro_torch.serve import Engine
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32", period=tuple(
+        BlockSpec(sp.kind, "swiglu") for sp in cfg.period))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 43)
+    t0 = time.perf_counter()
+    model = M.init_params(cfg32, generator=gen, device=dev)
+    tap = {}
+
+    def last_logits(mod, args, kwargs, out):
+        if kwargs.get("mode") == "decode" and args[0].shape[1] == 1:
+            tap["logits"] = out[0][0, 0].clone()     # slot 0: alone
+
+    hook = model.register_forward_hook(last_logits, with_kwargs=True)
+    res = Engine(cfg32, model, max_len=HYB_LEN, max_batch=HYB_SLOTS,
+                 device=dev).generate([request])[0]
+    hook.remove()
+    seq = res.tokens[:-1]
+    pad = -len(seq) % cfg.attn_qchunk
+    with torch.no_grad():
+        ref = M.forward(model, tokens=torch.tensor(
+            [seq + [0] * pad], device=dev), mode="train")[0][0, len(seq) - 1]
+    got = tap["logits"]
+    rel = float((got - ref).abs().max() / ref.std())
+    n_mamba = sum(sp.kind == "mamba" for sp in cfg32.period) \
+        * cfg32.n_periods
+    print(f"check the {len(request.prompt)}-token request in float32 "
+          f"weights, {cfg32.n_layers} layers ({n_mamba} Mamba) with dense "
+          f"SwiGLUs of {cfg32.d_ff} ({M.param_bytes(model) / 1e9:.3f} GB): "
+          f"last decode"
+          f" step vs a cache-free forward over {len(seq)} tokens: max|diff|"
+          f" / std(logits) = {rel:.3g} (bound {HYB_F32_BOUND:g}); "
+          f"{time.perf_counter() - t0:.1f} s | {smi}", flush=True)
+    check(bool(torch.isfinite(got).all()) and rel <= HYB_F32_BOUND,
+          "serve-hybrid: float32 decode logits outside the bound of the "
+          "cache-free forward")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2839,16 +3328,17 @@ def main(argv=None) -> int:
             return fail(f"{tier}: K1 differs from its plain version at the "
                         "main path's shape")
         errs[tier] = max(errs[tier], perr)
-        lib_ms = None
-        if tier != "compensated":   # one index_add_ gives the same totals
-            # (the integer tiers': their domain's int32 column sums)
-            safe = torch.where(mids >= 0, mids, torch.full_like(mids, s)) \
-                .to(torch.int64)
-            ldom = dom if tier == "fast" else dom.to(torch.int32)
-            lib_ms = cuda_ms(lambda: torch.zeros(
-                (s + 1, w), dtype=ldom.dtype, device=dev).index_add_(
-                    0, safe, ldom), REPS)
-            del ldom
+        # one index_add_ gives the same totals: the segment sums of the
+        # values (fast's and compensated's domain is the values
+        # themselves), the integer tiers' int32 column sums of their domain
+        safe = torch.where(mids >= 0, mids, torch.full_like(mids, s)) \
+            .to(torch.int64)
+        ldom = dom if tier in ("fast", "compensated") \
+            else dom.to(torch.int32)
+        lib_ms = cuda_ms(lambda: torch.zeros(
+            (s + 1, w), dtype=ldom.dtype, device=dev).index_add_(
+                0, safe, ldom), REPS)
+        del ldom
         out_bytes = sum(c.numel() * 4 for c in kern)
         kept = int((mids >= 0).sum())   # sentinel rows' values go unread
         bytes_ = n * 4 + kept * w * 4 + out_bytes
@@ -2893,6 +3383,9 @@ def main(argv=None) -> int:
           flush=True)
     kernels += serve_mla_phase(args.seed, dev, smi)
     print(f"elapsed after phase 15: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    kernels += serve_hybrid_phase(args.seed, dev, smi)
+    print(f"elapsed after phase 16: {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,6 @@
 """The language model: init, full-sequence forward, prefill and decode for
-the GQA- and MLA-attention architectures, dense or with experts.
+the GQA- and MLA-attention architectures and the Mamba hybrids, dense or
+with experts.
 
 The PyTorch counterpart of the reference's ``repro.models.model``, written
 as ``nn.Module``s: ``LM`` holds the embedding, one ``Block`` per layer
@@ -7,8 +8,10 @@ as ``nn.Module``s: ``LM`` holds the embedding, one ``Block`` per layer
 rmsnorm) and the head.  The reference stacks each period position's parameters on a leading
 ``n_periods`` axis and scans over it; here the layers are a plain loop
 (``_run_stack``), layer ``i * len(period) + j`` being period ``i``'s
-position ``j``.  The caches keep the reference's layout: one ``KVCache``
-(an ``MLACache`` for an MLA model) per period position with a leading
+position ``j``.  A block's core is attention or, at a ``mamba`` period
+position, a Mamba block (``ssm``).  The caches keep the reference's
+layout: one ``KVCache`` (an ``MLACache`` for an MLA model, a
+``MambaState`` at a Mamba position) per period position with a leading
 ``n_periods`` axis, so each layer's slice is contiguous; a sliding-window
 model's caches are rings of ``cfg.window`` slots (``attention``).  Code
 that handles caches reads their fields from the cache's own type.
@@ -21,9 +24,9 @@ float32, sequence-chunked as the reference does); its gradients come from
 torch autograd, ``remat`` recomputing each block in the backward.
 
 The port runs GQA attention (MHA included) with a dense or a ring KV cache,
-or MLA with a latent cache, and a SwiGLU, GELU, MoE or no MLP.  A
-configuration that needs more raises ``NotImplementedError`` naming what
-is missing (``unsupported``).
+or MLA with a latent cache, Mamba blocks beside either, and a SwiGLU,
+GELU, MoE or no MLP.  A configuration that needs more raises
+``NotImplementedError`` naming what is missing (``unsupported``).
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ from torch.utils.checkpoint import checkpoint
 from .. import resolve_device
 from . import attention as attn
 from . import moe as moe_mod
-from .config import BlockSpec, ModelConfig
+from . import ssm
+from .config import BlockSpec, MambaCfg, ModelConfig
 from .layers import (SwiGLU, _param, embed_lookup, gelu_mlp, matmul_f32,
                      rmsnorm, rope_tables)
 
@@ -45,7 +49,7 @@ from .layers import (SwiGLU, _param, embed_lookup, gelu_mlp, matmul_f32,
 def unsupported(cfg: ModelConfig) -> List[str]:
     """What ``cfg`` needs that the port's model lacks (empty: it runs)."""
     missing = []
-    for kind in ("mamba", "mlstm", "slstm"):
+    for kind in ("mlstm", "slstm"):
         if any(sp.kind == kind for sp in cfg.period):
             missing.append(kind)
     if cfg.is_encdec:
@@ -62,9 +66,10 @@ def check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: the PyTorch port has no {', '.join(missing)} yet; "
-            "it runs GQA attention models on dense or ring caches and MLA "
-            "models on latent caches, dense or with experts (e.g. "
-            "stablelm-1.6b, mixtral-8x22b, deepseek-v2-lite-16b)")
+            "it runs GQA attention models on dense or ring caches, MLA "
+            "models on latent caches and Mamba hybrids, dense or with "
+            "experts (e.g. stablelm-1.6b, mixtral-8x22b, "
+            "deepseek-v2-lite-16b, jamba-v0.1-52b)")
 
 
 # ---------------------------------------------------------------------------
@@ -83,13 +88,19 @@ class GeluMLP(nn.Module):
 
 
 class Block(nn.Module):
-    """rmsnorm -> attention -> residual, then rmsnorm -> MLP -> residual."""
+    """rmsnorm -> attention (or Mamba) -> residual, then rmsnorm -> MLP ->
+    residual."""
 
     def __init__(self, spec: BlockSpec, cfg: ModelConfig, dtype, device):
         super().__init__()
         self.cfg, self.spec = cfg, spec
         self.norm1 = _param((cfg.d_model,), dtype, device)
-        core = attn.MLA if cfg.attn_type == "mla" else attn.GQA
+        if spec.kind == "mamba":
+            core = ssm.Mamba
+        elif cfg.attn_type == "mla":
+            core = attn.MLA
+        else:
+            core = attn.GQA
         self.core = core(cfg, dtype, device)
         if spec.mlp == "moe":
             self.norm2 = _param((cfg.d_model,), dtype, device)
@@ -154,10 +165,13 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
     """A model of ``cfg`` with random weights drawn from ``generator``, as
     the reference draws them: the embedding N(0, 0.02^2), each projection
     N(0, 1/d_in) (an MoE router too, kept float32), the experts' ``wi``
-    and ``wg`` N(0, 1/d) and ``wo`` N(0, 1/(f * v)) (``_init_scale``),
-    norms ones (MLA's latent ``c_norm`` too); drawn in float32, then cast
-    to the parameter's dtype.  ``device=None`` means CUDA
-    (``resolve_device``);
+    and ``wg`` N(0, 1/d) and ``wo`` N(0, 1/(f * v)), a Mamba conv's
+    ``conv_w`` N(0, 1/d_conv^2) (``_init_scale``), norms ones (MLA's
+    latent ``c_norm`` too); drawn in float32, then cast to the
+    parameter's dtype.  A Mamba block's other leaves are set, not drawn
+    (``_MAMBA_FILLED``, as ``mamba_init``): ``a_log`` log(1..d_state) on
+    every channel, ``d_skip`` ones, ``dt_bias`` and ``conv_b`` zeros.
+    ``device=None`` means CUDA (``resolve_device``);
     ``device="meta"`` gives the shapes alone and allocates nothing (no
     generator needed).  The draws are made on the generator's device, so
     one generator state gives the same weights whatever ``device`` is."""
@@ -174,6 +188,9 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
             if leaf.startswith("norm") or leaf.endswith("_norm"):
                 p.fill_(1.0)
                 continue
+            if leaf in _MAMBA_FILLED:
+                p.copy_(_MAMBA_FILLED[leaf](p))
+                continue
             scale = _init_scale(cfg, name, p)
             w = torch.randn(p.shape, generator=generator,
                             device=generator.device, dtype=torch.float32)
@@ -181,12 +198,25 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
     return model
 
 
+#: a Mamba block's leaves that ``mamba_init`` sets rather than draws
+_MAMBA_FILLED = {
+    "a_log": lambda p: torch.log(torch.arange(
+        1, p.shape[1] + 1, dtype=torch.float32, device=p.device)).expand(
+            p.shape),
+    "d_skip": torch.ones_like,
+    "dt_bias": torch.zeros_like,
+    "conv_b": torch.zeros_like,
+}
+
+
 def _init_scale(cfg: ModelConfig, name: str, p) -> float:
     """The standard deviation the reference draws parameter ``name`` at
     (``moe.py:moe_init`` for the 3-D expert leaves: (E*v, d, f) and
-    (E*v, f, d))."""
+    (E*v, f, d); ``ssm.py:mamba_init`` for ``conv_w`` (d_conv, di))."""
     if name == "embed":
         return 0.02
+    if name.endswith(".conv_w"):
+        return 1.0 / p.shape[0]
     if p.ndim == 3:
         if name.endswith(".wo"):
             return (p.shape[1] * cfg.moe_virtual_split) ** -0.5
@@ -227,8 +257,11 @@ def _apply_block(bp: Block, x, cfg: ModelConfig, *, positions, mode, cache,
 def _run_stack(model: LM, x, *, positions, mode, caches, active=None,
                remat: bool = False, moe_impl: str = "capacity"):
     """Every layer in order.  ``caches``: one ``{"core": cache}`` per
-    period position (a ``KVCache`` or an ``MLACache``), leaves with a
-    leading ``n_periods`` axis, or None.
+    period position (a ``KVCache``, an ``MLACache`` or a ``MambaState``),
+    leaves with a leading ``n_periods`` axis, or None.  Decode writes
+    each layer's rows in place through its view of them; a cache with a
+    ``length`` comes back with the new lengths, one without (a
+    ``MambaState``) as it is.
     ``remat`` (train mode, with autograd recording): each block runs under
     a non-reentrant ``torch.utils.checkpoint``, keeping only its input
     and recomputing the rest in the backward.
@@ -263,8 +296,11 @@ def _run_stack(model: LM, x, *, positions, mode, caches, active=None,
         if ncs[0] is None:
             new_caches.append({"core": None})
         elif mode == "decode":                 # the rows written in place
-            new_caches.append({"core": caches[j]["core"]._replace(
-                length=torch.stack([c.length for c in ncs]))})
+            core = caches[j]["core"]
+            if "length" in core._fields:
+                core = core._replace(
+                    length=torch.stack([c.length for c in ncs]))
+            new_caches.append({"core": core})
         else:
             new_caches.append({"core": type(ncs[0])(
                 *(torch.stack(ts) for ts in zip(*ncs)))})
@@ -395,17 +431,25 @@ def init_caches(cfg: ModelConfig, bsz: int, max_len: int, *, device=None,
     input, by default), length (n, B): a ``KVCache`` of k, v (n, B, T, K,
     hd), T being ``max_len``, or ``cfg.window`` for a sliding-window model
     (a ring, whatever ``max_len`` is); for an MLA model an ``MLACache`` of
-    c_kv (n, B, max_len, r) and k_rope (n, B, max_len, rd).  Widening a
-    narrow latent, key or value is exact, so a float32 cache holds what
-    the reference's cache in the model's dtype holds."""
+    c_kv (n, B, max_len, r) and k_rope (n, B, max_len, rd); at a Mamba
+    position a ``MambaState`` of h (n, B, di, d_state), float32 whatever
+    ``dtype`` is, and conv (n, B, d_conv - 1, di), with no length (its
+    size does not grow with the sequence).  Widening a narrow latent,
+    key, value or conv input is exact, so a float32 cache holds what the
+    reference's cache in the model's dtype holds."""
     check_supported(cfg)
     dev = resolve_device(device)
     n = cfg.n_periods
 
-    def zeros(*shape):
+    def zeros(*shape, dtype=dtype):
         return torch.zeros((n, bsz) + shape, dtype=dtype, device=dev)
 
-    def cache():
+    def cache(spec: BlockSpec):
+        if spec.kind == "mamba":
+            m = cfg.mamba or MambaCfg()
+            di = m.expand * cfg.d_model
+            return ssm.MambaState(h=zeros(di, m.d_state, dtype=torch.float32),
+                                  conv=zeros(m.d_conv - 1, di))
         length = torch.zeros((n, bsz), dtype=torch.int32, device=dev)
         if cfg.attn_type == "mla":
             return attn.MLACache(zeros(max_len, cfg.kv_lora_rank),
@@ -414,7 +458,7 @@ def init_caches(cfg: ModelConfig, bsz: int, max_len: int, *, device=None,
         shape = (slots, cfg.n_kv_heads, cfg.hdim)
         return attn.KVCache(zeros(*shape), zeros(*shape), length)
 
-    return [{"core": cache()} for _ in cfg.period]
+    return [{"core": cache(spec)} for spec in cfg.period]
 
 
 def cache_bytes(caches) -> int:
@@ -426,12 +470,16 @@ def pad_caches_to(cfg: ModelConfig, caches, max_len: int):
     """Grow prefill-shaped caches (sequence axis == prefill length) to
     ``max_len`` with zero rows so decode can append: a ``KVCache``'s k, v
     (n, B, S, K, hd), an ``MLACache``'s c_kv, k_rope (n, B, S, .).  Ring
-    caches are ``cfg.window`` slots already and are left as they are."""
+    caches are ``cfg.window`` slots already and a ``MambaState`` (no
+    length) is O(1) in the sequence: both are left as they are."""
     if cfg.window is not None:
         return list(caches)
     out = []
     for c in caches:
         core = c["core"]
+        if "length" not in core._fields:
+            out.append(c)
+            continue
         padn = max_len - core[0].shape[2]
         if padn > 0:
             core = type(core)(*(torch.nn.functional.pad(   # all but length

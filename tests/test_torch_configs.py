@@ -1,10 +1,10 @@
 """The port's configuration copies and model support against the
 reference, on the CPU: every architecture's CONFIG and SMOKE equal the
-reference's, the GQA ones (dense or with experts, dense or ring caches)
-and the MLA one build, the rest raise naming what the port lacks, and
-stablelm-1.6b's and deepseek-v2-lite-16b's full-width parameter shapes
-match the reference's ``init_params`` (both abstract: nothing is
-allocated)."""
+reference's, the GQA ones (dense or with experts, dense or ring caches),
+the MLA one and the Mamba hybrid build, the rest raise naming what the
+port lacks, and stablelm-1.6b's, deepseek-v2-lite-16b's and
+jamba-v0.1-52b's full-width parameter shapes match the reference's
+``init_params`` (both abstract: nothing is allocated)."""
 
 import dataclasses
 
@@ -26,9 +26,11 @@ ARCH = "stablelm-1.6b"
 @pytest.mark.parametrize("arch", RC.ARCH_IDS)
 def test_config_copy_and_model_support(arch):
     """CONFIG and SMOKE equal the reference's field for field; a GQA
-    model (mixtral-8x22b's experts included) or an MLA one
-    (deepseek-v2-lite-16b) builds on the meta device (nothing allocated)
-    with the reference's parameter count plus its norms; any other
+    model (mixtral-8x22b's experts included), an MLA one
+    (deepseek-v2-lite-16b) or a Mamba hybrid (jamba-v0.1-52b) builds on
+    the meta device (nothing allocated) with the reference's parameter
+    count plus its norms and, for each Mamba layer, the leaves
+    ``param_counts`` leaves out (``_mamba_uncounted``); any other
     configuration raises NotImplementedError naming everything the port
     lacks."""
     assert TC.ARCH_IDS == RC.ARCH_IDS
@@ -48,7 +50,7 @@ def test_config_copy_and_model_support(arch):
         if cfg.attn_type == "mla":                      # nor MLA's c_norm
             norms += cfg.n_layers * cfg.kv_lora_rank
         assert sum(p.numel() for p in model.parameters()) \
-            == cfg.param_counts()["total"] + norms
+            == cfg.param_counts()["total"] + norms + _mamba_uncounted(cfg)
         return
     with pytest.raises(NotImplementedError) as e:
         TM.init_params(cfg, device="meta")
@@ -58,18 +60,36 @@ def test_config_copy_and_model_support(arch):
         TM.init_caches(cfg, 1, 8, device="cpu")
 
 
+def _mamba_uncounted(cfg) -> int:
+    """What ``param_counts`` (a copy of the reference's) leaves out of
+    each Mamba layer of the reference's ``mamba_init`` tree.  It counts
+    in_proj, conv_w, x_proj's b and c columns, two di vectors and
+    out_proj; the tree also holds x_proj's dt_rank columns and dt_proj
+    (dt_rank * di each), a_log (d_state * di) and a third di vector
+    (conv_b, dt_bias, d_skip): 2 dt_rank di + d_state di + di, 4,333,568
+    at jamba-v0.1-52b's width."""
+    n = sum(sp.kind == "mamba" for sp in cfg.period) * cfg.n_periods
+    if not n:
+        return 0
+    di = cfg.mamba.expand * cfg.d_model
+    dt_rank = -(-cfg.d_model // 16)
+    return n * (2 * dt_rank * di + cfg.mamba.d_state * di + di)
+
+
 def test_unsupported_names_each_missing_kind():
-    """Experts, ring caches and MLA are ported: mixtral-8x22b and
-    deepseek-v2-lite-16b run, jamba-v0.1-52b lacks mamba alone."""
+    """Experts, ring caches, MLA and Mamba are ported: mixtral-8x22b,
+    deepseek-v2-lite-16b and jamba-v0.1-52b run; the others raise naming
+    what they lack."""
     want = {"xlstm-125m": {"mlstm", "slstm"},
-            "jamba-v0.1-52b": {"mamba"},
             "qwen2-vl-7b": {"embed_inputs", "mrope"},
             "seamless-m4t-large-v2": {"enc-dec"}}
     for arch, kinds in want.items():
         assert set(TM.unsupported(TC.get_config(arch))) >= kinds, arch
-    assert set(TM.unsupported(TC.get_config("jamba-v0.1-52b"))) \
-        == want["jamba-v0.1-52b"]
-    for arch in (ARCH, "mixtral-8x22b", "deepseek-v2-lite-16b"):
+        with pytest.raises(NotImplementedError) as e:
+            TM.check_supported(TC.get_config(arch))
+        assert all(k in str(e.value) for k in kinds), arch
+    for arch in (ARCH, "mixtral-8x22b", "deepseek-v2-lite-16b",
+                 "jamba-v0.1-52b"):
         assert TM.unsupported(TC.get_config(arch)) == []
 
 
@@ -86,14 +106,14 @@ def _meta_against_eval_shape(arch):
                abstract)[0]}
     tcfg = TC.get_config(arch)
     model = TM.init_params(tcfg, device="meta")
-    # the port's parameters in the reference tree's layout: layer l of
-    # period position j stacked under "blocks/j" (one position here)
+    # the port's parameters in the reference tree's layout: layer j of
+    # period 0 stands for period position j, stacked under "blocks/j"
     got = {}
     for name, p in model.named_parameters():
         parts = name.split(".")
         if parts[0] != "blocks":
             got[name] = tuple(p.shape)
-        elif parts[1] == "0":
+        elif int(parts[1]) < len(tcfg.period):      # period 0's layers
             got["/".join(parts)] = (tcfg.n_periods,) + tuple(p.shape)
     return ref, got, model
 
@@ -130,3 +150,30 @@ def test_deepseek_full_width_shapes_on_meta_match_eval_shape():
         == 16_210_198_528 + norms
     routers = 27 * cfg.d_model * cfg.moe.num_experts          # float32
     assert TM.param_bytes(model) == 2 * (n - routers) + 4 * routers
+
+
+def test_jamba_full_width_shapes_on_meta_match_eval_shape():
+    """jamba-v0.1-52b's CONFIG at all 32 layers (Mamba at 7 of each 8
+    period positions, GQA at position 4, 16 experts top-2 with an f32
+    router at the odd positions): every parameter's shape against
+    ``jax.eval_shape`` of the reference's init_params; 51,570,315,264
+    parameters on both sides (``param_counts`` plus the 65 norms and 28
+    x 4,333,568 uncounted Mamba leaves); ``param_bytes`` counts the
+    float32 leaves (each Mamba layer's dt_bias, a_log, d_skip, each MoE
+    router) at 4 bytes, the rest at 2."""
+    ref, got, model = _meta_against_eval_shape("jamba-v0.1-52b")
+    assert got == ref
+    assert {"blocks/0/core/a_log", "blocks/4/core/wq",
+            "blocks/1/mlp/router", "blocks/2/mlp/wg"} <= set(got)
+    cfg = TC.get_config("jamba-v0.1-52b")
+    n = sum(p.numel() for p in model.parameters())
+    assert n == sum(int(np.prod(s)) for s in ref.values()) == 51_570_315_264
+    assert n == cfg.param_counts()["total"] + 65 * cfg.d_model \
+        + 28 * 4_333_568
+    di = 2 * cfg.d_model
+    f32 = 28 * (di + di * 16 + di) + 16 * cfg.d_model * 16
+    assert {p.dtype for p in model.parameters()} \
+        == {torch.bfloat16, torch.float32}
+    assert sum(p.numel() for p in model.parameters()
+               if p.dtype == torch.float32) == f32
+    assert TM.param_bytes(model) == 2 * (n - f32) + 4 * f32

@@ -722,3 +722,75 @@ def test_cuda_accumulators_bitwise_their_cpu_run(name, cuda):
         for a, b in zip(I.limbs_canonical(st_g.hi, st_g.lo),
                         I.limbs_canonical(k5[0], k5[1])):
             assert torch.equal(a, b)
+
+
+def _mamba_smoke(device, dtype="float32"):
+    """Layer 0 of jamba-v0.1-52b's SMOKE model (a Mamba block, di 256,
+    d_state 4) drawn on the CPU, and a copy of it on ``device``."""
+    import copy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    cfg = get_smoke_config("jamba-v0.1-52b").scaled(dtype=dtype)
+    core = init_params(cfg, generator=torch.Generator().manual_seed(9),
+                       device="cpu").blocks[0].core
+    return cfg, core, copy.deepcopy(core).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_cuda_mamba_layer_matches_its_cpu_run(dtype, cuda):
+    """One Mamba layer on the card against the same layer on the CPU:
+    prefill of 70 rows in chunks of 16 (ragged last chunk) and three
+    decode steps.  The card sums its products in another order (cuBLAS,
+    its reductions), so the float32 outputs and states agree within 2e-5
+    (values of about 1, a 7-layer-deep scan tree); in bf16 the projections
+    round to bf16 on each side, so within 2 bf16 ulps of the outputs'
+    largest value (2^-7 relative)."""
+    from repro_torch.models import ssm
+    cfg, cpu_core, card_core = _mamba_smoke(cuda, dtype)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(np.random.RandomState(4).randn(2, 73, 128)
+                         .astype(np.float32)).to(dt)
+    tol = 2e-5 if dtype == "float32" else 2.0 ** -7
+
+    def run(core, dev):
+        xs = x.to(dev)
+        y, st = ssm.mamba_apply(core, xs[:, :70], cfg.mamba, mode="prefill",
+                                chunk=16)
+        st = ssm.MambaState(st.h.clone(), st.conv.float())
+        ys = [y]
+        for i in range(70, 73):
+            yi, st = ssm.mamba_apply(core, xs[:, i:i + 1], cfg.mamba,
+                                     mode="decode", state=st)
+            ys.append(yi)
+        return torch.cat(ys, 1).float().cpu(), st.h.cpu(), st.conv.cpu()
+
+    errs = [float((a - b).abs().max()) / max(float(a.abs().max()), 1.0)
+            for a, b in zip(run(cpu_core, "cpu"), run(card_core, cuda))]
+    assert max(errs) <= tol, f"y, h, conv: {errs}"
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_decode_active_mask_bitwise(cuda):
+    """On the card, a decode step with ``active`` [True, False, True]
+    keeps the inactive row's h and conv bitwise, and the active rows'
+    outputs and states equal an unmasked step's bitwise."""
+    from repro_torch.models import ssm
+    cfg, _, core = _mamba_smoke(cuda)
+    x = torch.from_numpy(np.random.RandomState(6).randn(3, 10, 128)
+                         .astype(np.float32)).to(cuda)
+    _, st = ssm.mamba_apply(core, x[:, :9], cfg.mamba, mode="prefill")
+    free = ssm.MambaState(st.h.clone(), st.conv.clone())
+    masked = ssm.MambaState(st.h.clone(), st.conv.clone())
+    active = torch.tensor([True, False, True], device=cuda)
+    y_free, _ = ssm.mamba_apply(core, x[:, 9:], cfg.mamba, mode="decode",
+                                state=free)
+    y_mask, _ = ssm.mamba_apply(core, x[:, 9:], cfg.mamba, mode="decode",
+                                state=masked, active=active)
+    for r in (0, 2):
+        assert torch.equal(y_mask[r], y_free[r])
+        assert torch.equal(masked.h[r], free.h[r])
+        assert torch.equal(masked.conv[r], free.conv[r])
+    assert torch.equal(masked.h[1], st.h[1])
+    assert torch.equal(masked.conv[1], st.conv[1])
+    assert not torch.equal(masked.h[0], st.h[0])

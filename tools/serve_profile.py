@@ -3,16 +3,21 @@
 
     python3 tools/serve_profile.py [--seed 0] [--steps 4]   # needs CUDA
     python3 tools/serve_profile.py --arch deepseek-v2-lite-16b --max-len 4096
+    python3 tools/serve_profile.py --arch jamba-v0.1-52b --layers 16
 
 Builds ``--arch`` at full width (stablelm-1.6b by default; bf16, random
-weights from ``--seed``) and ``chip_smoke.py``'s serving engine (8 slots
-x ``--max-len`` context, 32-token prefill chunks, the dense MoE), fills
-the slots with one ``generate`` of 8 prompts of 64-768 tokens, then times
-and profiles, each after a warm-up:
+weights from ``--seed``), its depth cut to ``--layers`` (a multiple of
+the period: whole periods; default all), and ``chip_smoke.py``'s serving
+engine (8 slots x ``--max-len`` context, 32-token prefill chunks, the
+dense MoE), fills the slots with one ``generate`` of 8 prompts of 64-768
+tokens, then times and profiles, each after a warm-up:
 
   * a decode step of all 8 slots (``decode_step`` with every row active,
-    each call writing the same cache row);
-  * a 32-token prefill chunk of slot 0 (``Engine._prefill_chunk``).
+    each call writing the same cache row; a Mamba layer's state steps on
+    from call to call);
+  * a 32-token prefill chunk of slot 0 (``Engine._prefill_chunk``), or,
+    for a model the engine prefills whole (ring caches, Mamba states),
+    slot 0's whole prompt (``Engine._classic_prefill``).
 
 For each it prints the wall time per call (host clock around
 synchronized calls), the device's busy time per call (the sum of the CUDA
@@ -24,6 +29,7 @@ host time.  The card's name and power limit come first.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import sys
 import time
@@ -80,6 +86,8 @@ def main(argv=None) -> int:
     ap.add_argument("--top", type=int, default=14)
     ap.add_argument("--arch", default="stablelm-1.6b")
     ap.add_argument("--max-len", type=int, default=1024)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (whole periods)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -94,6 +102,11 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     dev = torch.device("cuda")
     cfg = get_config(args.arch)
+    if args.layers is not None:
+        if args.layers % len(cfg.period):
+            ap.error(f"--layers {args.layers}: {cfg.name}'s period is "
+                     f"{len(cfg.period)} layers")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     model = M.init_params(cfg, generator=gen, device=dev)
@@ -106,17 +119,27 @@ def main(argv=None) -> int:
                                          generator=host).tolist(),
                     max_new_tokens=8) for n in lens]
     res = eng.generate(reqs)
-    lengths = eng._caches[0]["core"].length[0].clone()
+    # the slots' lengths, from the first cache that keeps them (a Mamba
+    # state has none)
+    lengths = next(c["core"].length[0].clone() for c in eng._caches
+                   if "length" in c["core"]._fields)
     toks = torch.tensor([[r.tokens[-1]] for r in res], device=dev)
     active = torch.ones(8, dtype=torch.bool, device=dev)
-    chunk = torch.tensor([reqs[0].prompt[:32]], device=dev)
-    print(f"prompts {lens}; cache lengths {lengths.tolist()}", flush=True)
+    print(f"{cfg.name} at {cfg.n_layers} layers; prompts {lens}; cache "
+          f"lengths {lengths.tolist()}", flush=True)
     with torch.no_grad():
         profile("decode step (B=8)", lambda: M.decode_step(
             model, toks, eng._caches, lengths, active=active,
             moe_impl="dense"), args.steps, args.top)
-        profile("prefill chunk (32 tokens)", lambda: eng._prefill_chunk(
-            0, chunk, 0, 32), args.steps, args.top)
+        if eng._extend_ok:
+            chunk = torch.tensor([reqs[0].prompt[:32]], device=dev)
+            profile("prefill chunk (32 tokens)", lambda: eng._prefill_chunk(
+                0, chunk, 0, 32), args.steps, args.top)
+        else:
+            prompt = torch.tensor([reqs[0].prompt], device=dev)
+            profile(f"whole-prompt prefill ({lens[0]} tokens)",
+                    lambda: eng._classic_prefill(0, prompt), args.steps,
+                    args.top)
     return 0
 
 
