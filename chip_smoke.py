@@ -20,10 +20,11 @@ shape.  Then mixtral-8x22b at full width (8 of its 56 layers) served
 through the same ``Engine`` on sliding-window ring caches, its experts
 through the dense MoE.  Then deepseek-v2-lite-16b whole (all 27 layers,
 full width) served through the ``Engine`` on latent caches, its
-multi-head latent attention decoding absorbed.  Last, jamba-v0.1-52b at
+multi-head latent attention decoding absorbed.  Then jamba-v0.1-52b at
 full width (16 of its 32 layers) served through the ``Engine``: Mamba
-blocks on O(1) states beside GQA attention on K2.  All data is drawn
-from ``--seed``.  Phases, in order; any failure exits nonzero:
+blocks on O(1) states beside GQA attention on K2.  Last, xlstm-125m whole
+served through the ``Engine``: mLSTM and sLSTM blocks on O(1) states.
+All data is drawn from ``--seed``.  Phases, in order; any failure exits nonzero:
 
 1. device — the card's name and power limit, as nvidia-smi prints them;
 2. build  — every CUDA source, one nvcc each, in parallel;
@@ -175,7 +176,28 @@ from ``--seed``.  Phases, in order; any failure exits nonzero:
    the experts; timings: a decode step against the weights' bound, the
    whole-prompt prefills at 4,096 and 2,600, a Mamba layer's decode and
    prefill, K2 per layer against its bound and SDPA, generated tokens/s,
-   the parameter and cache bytes, peak memory.
+   the parameter and cache bytes, peak memory;
+17. serve-xlstm — xlstm-125m's ``CONFIG`` whole: 12 layers at full width
+   (9 mLSTM, 3 sLSTM), nothing cut (random weights from the seed, 0.307
+   GB), through ``Engine(max_len=2176, max_batch=8)`` (whole-prompt
+   prefill; float32 states of 0.172 GB), 8 greedy requests of 32 new
+   tokens (six prompts of 64-768 tokens, one of 2,048 and one of 1,300):
+   every result complete and in order; K1 launched once, for
+   ``mean_logprob``, and K2-K5 never (counts set to 0 just before the
+   run, read just after); K1 bitwise its plain version at the
+   ``mean_logprob`` shape; a decode step with two slots inactive keeps
+   their mLSTM and sLSTM states bitwise while the others move; layer 0's
+   chunked mLSTM over the 2,048 prompt within ``XL_SCAN_BOUND`` of a
+   float64 sequential recurrence (h and the final c, n, m); layer 3's
+   sLSTM prefill loop bitwise the cell on its own projections and within
+   ``XL_SLSTM_BOUND`` of 2,048 decode steps at batch 1; the 2,048 request
+   alone gives bitwise its batched tokens; the 1,300 request's last
+   decode logits within ``XL_LOGIT_BOUND`` of a cache-free forward in
+   bf16, and within ``XL_F32_BOUND`` in float32 weights; timings: a
+   decode step against the bytes' bound (weights once, states read and
+   written), the whole-prompt prefills at 2,048 and 1,300, an mLSTM and
+   an sLSTM layer's decode and prefill, generated tokens/s, the
+   parameter and state bytes, peak memory.
 
 Times are CUDA-event medians after a warm-up (plain versions: one
 host-clock run; K1 on the train path: the sum over a step's launches,
@@ -381,6 +403,66 @@ HYB_LOGIT_BOUND = 1.0
 #: another order across 14 Mamba layers, a few float32 ulps a layer; as
 #: MLA_F32_BOUND
 HYB_F32_BOUND = 1e-3
+#: the serve-xlstm phase: xlstm-125m's published CONFIG (src/repro_torch/
+#: configs/xlstm_125m.py, arXiv:2405.04517) whole: 12 layers at full
+#: width (d_model 768; 9 mLSTM layers of di 1,536 in 4 heads of 384,
+#: conv kernel 4; 3 sLSTM layers with a GELU FFN of 1,024; no MLP; tied
+#: embeddings of the padded vocabulary 50,432; bf16), 153,370,440
+#: parameters (0.307 GB with the f32 leaves), nothing cut.  8 slots of
+#: 2,176 context: the states are fixed, 8 x (9 x (4 x 384 x 384 + 4 x
+#: 384 + 4 + 3 x 1,536) + 3 x 4 x 768) x 4 B = 0.172 GB.  8 greedy
+#: requests of 32 new tokens, all prefilled whole: six prompts in [64,
+#: 768], one of 2,048 tokens (the xLSTM paper's training context: four
+#: whole scan chunks of 512) and one of 1,300 (its last chunk 276 rows)
+XL_ARCH, XL_LEN, XL_SLOTS, XL_NEW = "xlstm-125m", 2176, 8, 32
+XL_PROMPTS, XL_LONG = (64, 768), (2048, 1300)
+#: slots held inactive in the masked decode step (check 4)
+XL_FROZEN = (1, 5)
+#: layer 0's chunked mLSTM on the 2,048 prompt against a float64
+#: sequential recurrence (``mlstm_step`` in float64 on the same q, k, v
+#: and gates), max |diff| / max |ref| of h and of the final c, n, m.  The
+#: chunked form's weights are exp(logi_s - F_s - w_t), F the gates'
+#: prefix sum: its doubling tree is log2(512) = 9 additions deep, each
+#: rounding by u = 2^-24 of a partial sum no larger than |F| (the
+#: forget gates' log sigmoids at b_f = 3 are about -0.05 a row, so |F|
+#: reaches about 25 at a chunk's end), so F, u and w carry an absolute
+#: error of up to 9 u |F| = 1.3e-5 each, and an exponent error e moves
+#: its weight by e relative: 2 x 1.3e-5 = 2.7e-5 for a weight, carried
+#: into h, c and n as weighted averages (num and den share most of it).
+#: The contractions (512 rows, 384 columns) add a few u more.  1e-4
+#: leaves room for that; a wrong carry, stabilizer, mask or order moves
+#: h by a tenth of its size or more
+XL_SCAN_BOUND = 1e-4
+#: layer 3's sLSTM after the 2,048 prompt, its prefill's token loop
+#: against the same tokens fed one at a time through decode at batch 1,
+#: max |diff| / max |ref| of c, n, h, m.  The cells are the same code on
+#: the same shapes; the input projections are not (one product of 2,048
+#: rows against 2,048 of one row, summed in other orders, then rounded
+#: to bf16), so a few of the 6.3M projected values differ by one bf16 ulp
+#: (2^-8 relative).  The state forgets at the forget gate's rate (about
+#: a half a token at bias 0), so at the end it holds the flips of the
+#: last few tokens, each moving an exponential gate by up to its
+#: preactivation (a few units) x 2^-8, and h, rounded to bf16 again, by
+#: one more ulp: 2^-4 holds up to a few such flips at one element; a
+#: wrong gate, order, stabilizer or initial n moves the state by O(1).
+#: (On an H100 cuBLAS summed both products alike: bitwise, 0 flips.)
+XL_SLSTM_BOUND = 2.0 ** -4
+#: the 1,300-token request's last decode logits against a cache-free
+#: forward over its tokens, max |diff| / std, in bf16: prefill's chunked
+#: form against decode's recurrence in 9 mLSTM layers and 1-row against
+#: 1,331-row products everywhere round bf16 activations after different
+#: float32 sums, a bf16 ulp (2^-8) here and there through 12 layers;
+#: there is no router to flip, but the mLSTM's h = num / max(|n . q|,
+#: exp(-m)) divides by a dot product that can cancel, which magnifies
+#: such a flip (0.172 measured at seed 0 on an H100).  As
+#: SERVE_LOGIT_BOUND: the logits of another position or state lie about
+#: 6 std apart at their largest difference
+XL_LOGIT_BOUND = 0.25
+#: the same comparison with float32 weights (0.61 GB, nothing cut): no
+#: bf16 rounding, so the chunked form and the recurrence are one
+#: function summed in other orders, a few float32 ulps a layer; as
+#: HYB_F32_BOUND
+XL_F32_BOUND = 1e-3
 
 
 def fail(msg: str) -> int:
@@ -3081,6 +3163,367 @@ def hybrid_f32_check(cfg, request, seed, dev, smi):
     torch.cuda.empty_cache()
 
 
+def serve_xlstm_phase(seed, dev, smi):
+    """Phase 17: xlstm-125m whole (12 layers, full width) served through
+    the port's ``Engine``: mLSTM and sLSTM states, whole-prompt prefill;
+    returns the kernel entry of K1 on ``mean_logprob``."""
+    import gc
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import dense
+    from repro_torch.serve import Engine, Request
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    cfg = get_config(XL_ARCH)
+    x = cfg.xlstm
+    per = len(cfg.period)
+    m_pos = [j for j, sp in enumerate(cfg.period) if sp.kind == "mlstm"]
+    s_pos = [j for j, sp in enumerate(cfg.period) if sp.kind == "slstm"]
+    m_layers = [i * per + j for i in range(cfg.n_periods) for j in m_pos]
+    s_layers = [i * per + j for i in range(cfg.n_periods) for j in s_pos]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 51)
+    t_phase = time.perf_counter()
+    model = M.init_params(cfg, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_phase
+    param_bytes = M.param_bytes(model)
+    host = torch.Generator()
+    host.manual_seed(seed + 52)
+    lens = torch.randint(XL_PROMPTS[0], XL_PROMPTS[1] + 1,
+                         (XL_SLOTS - len(XL_LONG),),
+                         generator=host).tolist() + list(XL_LONG)
+    requests = [Request(prompt=torch.randint(1, cfg.vocab, (n,),
+                                             generator=host).tolist(),
+                        max_new_tokens=XL_NEW) for n in lens]
+    long_i, ragged = XL_SLOTS - 2, XL_SLOTS - 1
+    di = int(x.proj_factor_m * cfg.d_model)
+    print(f"serve-xlstm: {cfg.name} whole (d_model {cfg.d_model}, "
+          f"{len(m_layers)} mLSTM layers of di {di} in {x.num_heads} heads,"
+          f" {len(s_layers)} sLSTM layers at {s_layers} with a GELU FFN of "
+          f"{int(x.proj_factor_s * cfg.d_model)}, vocab {cfg.vocab} padded "
+          f"to {cfg.padded_vocab}, tied, {cfg.dtype}): "
+          f"{sum(p.numel() for p in model.parameters())} parameters "
+          f"({param_bytes} bytes by param_bytes) drawn in {init_s:.2f} s "
+          f"({held / 2 ** 30:.2f} GiB held before); {XL_SLOTS} slots x "
+          f"{XL_LEN} context, whole-prompt prefill, scan chunk "
+          f"{cfg.scan_chunk}; prompts {lens}, {XL_NEW} new tokens each, "
+          f"greedy", flush=True)
+
+    def engine():
+        return Engine(cfg, model, max_len=XL_LEN, max_batch=XL_SLOTS,
+                      logprob_policy="compensated", device=dev)
+
+    # taps: the decode steps and the last one's logits; layer 0's and
+    # layer 3's inputs in the 2,048-token prefill
+    tap = {"steps": 0, "logits": None}
+
+    def last_logits(mod, args, kwargs, out):
+        if kwargs.get("mode") == "decode" and args[0].shape[1] == 1:
+            tap["steps"] += 1
+            tap["logits"] = out[0][:, 0].clone()
+
+    def layer_input(name):
+        def hook(mod, args, kwargs):
+            if args[0].shape[1] == XL_LONG[0] and name not in tap:
+                tap[name] = args[0].clone()
+        return hook
+
+    hooks = [model.register_forward_hook(last_logits, with_kwargs=True),
+             model.blocks[m_layers[0]].core.register_forward_pre_hook(
+                 layer_input("xm"), with_kwargs=True),
+             model.blocks[s_layers[0]].core.register_forward_pre_hook(
+                 layer_input("xs"), with_kwargs=True)]
+
+    # the main path: counts set to 0 just before, read just after
+    eng = engine()
+    slot_of, stream = {}, {}
+
+    def on_step(e, step):
+        slot_of.update((tr.rid, tr.slot)
+                       for tr in e.scheduler.in_state("decode"))
+        stream["vals"], stream["ids"] = list(e._lp_vals), list(e._lp_ids)
+
+    rids = [eng.submit(r) for r in requests]
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.run(on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    for hk in hooks:
+        hk.remove()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = tap["steps"]
+    new = sum(len(r.tokens) - r.prompt_len for r in results)
+    print(f"main serve-xlstm: {len(results)} results in order "
+          f"{[r.rid for r in results]}, {new} tokens, {steps} decode steps "
+          f"in {wall * 1e3:.1f} ms; launches {launches} (K1 want 1, K2-K5 "
+          f"0); peak memory {peak_gb:.2f} GiB; mean_logprob "
+          f"{[round(r.mean_logprob, 4) for r in results]}", flush=True)
+    check([r.rid for r in results] == rids
+          and all(len(r.tokens) - r.prompt_len == XL_NEW
+                  and r.tokens[:r.prompt_len] == q.prompt
+                  and all(0 <= t < cfg.vocab for t in r.tokens)
+                  and math.isfinite(r.mean_logprob)
+                  for r, q in zip(results, requests)),
+          "serve-xlstm: results out of order, short, out of the vocabulary "
+          "or with a non-finite mean_logprob")
+    check(steps >= XL_NEW - 1
+          and launches == {"K1": 1, "K2": 0, "K3": 0, "K4": 0, "K5": 0},
+          f"serve-xlstm: launches {launches} for {steps} decode steps")
+
+    # K1 at the mean_logprob shape: the run's (step x slot) stream
+    vals = torch.cat(stream["vals"])[:, None]
+    ids = torch.from_numpy(np.concatenate(stream["ids"])).to(dev)
+    nseg = len(requests)
+    safe = torch.where((ids >= 0) & (ids < nseg), ids,
+                       torch.full_like(ids, nseg)).to(torch.int64)
+    entries = [dict(k1_entry(
+        "serve-xlstm", vals, ids, nseg, "compensated", smi,
+        lambda: torch.zeros((nseg + 1, 1), device=dev).index_add_(
+            0, safe, vals), op="mean"), launches=launches["K1"])]
+    del vals, ids, safe
+
+    # one decode step on the engine's own states with two slots inactive:
+    # their mLSTM (c, n, m, conv) and sLSTM (c, n, h, m) stay bitwise, the
+    # other slots' states move
+    caches = eng._caches
+    frozen = list(XL_FROZEN)
+    live = [s for s in range(XL_SLOTS) if s not in frozen]
+    before = {j: tuple(t[:, frozen].clone() for t in caches[j]["core"])
+              for j in range(per)}
+    live_c = {j: caches[j]["core"].c[:, live].clone() for j in range(per)}
+    toks = torch.tensor([[r.tokens[-1]] for r in results], device=dev)
+    pos = torch.tensor([len(r.tokens) - 1 for r in results], device=dev)
+    active = torch.ones(XL_SLOTS, dtype=torch.bool, device=dev)
+    active[frozen] = False
+    with torch.no_grad():
+        M.decode_step(model, toks, caches, pos, active=active)
+    kept = all(torch.equal(a, b[:, frozen]) for j in range(per)
+               for a, b in zip(before[j], caches[j]["core"]))
+    moved = all(not torch.equal(live_c[j][:, i], caches[j]["core"].c[:, s])
+                for j in range(per) for i, s in enumerate(live))
+    print(f"check a decode step with slots {frozen} inactive: their mLSTM "
+          f"(c, n, m, conv) and sLSTM (c, n, h, m) states in all "
+          f"{cfg.n_layers} layers {'bitwise unchanged' if kept else 'CHANGED'}"
+          f"; every active slot's c {'moved' if moved else 'DID NOT MOVE'}",
+          flush=True)
+    check(kept and moved, "serve-xlstm: the active mask does not hold")
+    del before, live_c
+
+    # timings on the engine's states: every slot active (the states step
+    # on from call to call)
+    active = torch.ones(XL_SLOTS, dtype=torch.bool, device=dev)
+    xm, xs = tap.pop("xm"), tap.pop("xs")
+    with torch.no_grad():
+        step_ms = cuda_ms(lambda: M.decode_step(model, toks, caches, pos,
+                                                active=active), REPS)
+        prefill_ms = {}
+        for i in (long_i, ragged):
+            ptoks = torch.tensor([requests[i].prompt], device=dev)
+            prefill_ms[lens[i]] = cuda_ms(
+                lambda: eng._classic_prefill(i, ptoks), 3)
+        layer_ms = {}
+        for kind, layer, xin in (("mLSTM", m_layers[0], xm),
+                                 ("sLSTM", s_layers[0], xs)):
+            core = model.blocks[layer].core
+            full = caches[layer % per]["core"]
+            view = type(full)(*(t[layer // per] for t in full))
+            xd = xin[:, -XL_SLOTS:].reshape(XL_SLOTS, 1, cfg.d_model) \
+                .contiguous()
+            layer_ms[kind] = (
+                cuda_ms(lambda: core(xd, mode="decode", cache=view,
+                                     active=active), REPS),
+                cuda_ms(lambda: core(xin, mode="prefill"), 3))
+    state_b = M.cache_bytes(caches)
+    bound_ms = (param_bytes + 2 * state_b) / HBM_BYTES_PER_S * 1e3
+    n_m, n_s = len(m_layers), len(s_layers)
+    print(f"time serve-xlstm: decode step at B={XL_SLOTS} {step_ms:.3f} ms "
+          f"(bound {bound_ms:.4f} ms: the weights once and the states read "
+          f"and written, {(param_bytes + 2 * state_b) / 1e9:.3f} GB over "
+          f"3.35 TB/s; {XL_SLOTS * 1e3 / step_ms:.1f} tokens/s decoding) | "
+          f"whole-prompt prefill "
+          + ", ".join(f"{n} tokens {ms:.1f} ms" for n, ms in
+                      prefill_ms.items())
+          + f" | an mLSTM layer (layer {m_layers[0]}, CUDA events): decode "
+          f"at B={XL_SLOTS} {layer_ms['mLSTM'][0]:.4f} ms ({n_m} layers "
+          f"{n_m * layer_ms['mLSTM'][0]:.3f} ms), prefill at {xm.shape[1]} "
+          f"tokens {layer_ms['mLSTM'][1]:.3f} ms | an sLSTM layer (layer "
+          f"{s_layers[0]}): decode {layer_ms['sLSTM'][0]:.4f} ms ({n_s} "
+          f"layers {n_s * layer_ms['sLSTM'][0]:.3f} ms), prefill at "
+          f"{xs.shape[1]} tokens {layer_ms['sLSTM'][1]:.3f} ms (a token "
+          f"loop: {layer_ms['sLSTM'][1] * 1e3 / xs.shape[1]:.1f} us a "
+          f"token) | the run: {new} tokens in {wall * 1e3:.1f} ms "
+          f"({new / wall:.1f} generated tokens/s, prefill included) | "
+          f"weights {param_bytes / 1e9:.3f} GB; states {state_b / 1e9:.4f} "
+          f"GB ({state_b} bytes, mLSTM "
+          f"{sum(t.numel() * t.element_size() for j in m_pos for t in caches[j]['core']) / 1e9:.4f}"
+          f" GB); peak {peak_gb:.2f} GiB | {smi}", flush=True)
+    del eng, caches, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with torch.no_grad():
+        # layer 0's chunked mLSTM over the 2,048 prompt against a float64
+        # sequential recurrence on the card, on the same heads and gates
+        core = model.blocks[m_layers[0]].core
+        xi, _ = dense(core.in_proj, xm).split(di, dim=-1)
+        window = torch.cat([xi.new_zeros((1, x.conv_kernel - 1, di)), xi],
+                           dim=1)
+        xc = F.silu(ssm._depthwise_conv(window, core.conv_w, core.conv_b)) \
+            .to(xm.dtype)
+        q, k, v, logi, logf = ssm.mlstm_gates(core, xi, xc, x.num_heads)
+        hd = di // x.num_heads
+        state = ssm.mlstm_init_state(1, x.num_heads, hd, dev)
+        h, (c, n, m) = ssm.mlstm_core(q, k, v, logi, logf, state,
+                                      cfg.scan_chunk)
+        st64 = tuple(t.double() for t in state)
+        h64 = torch.empty(h.shape, dtype=torch.float64, device=dev)
+        for t in range(q.shape[2]):
+            h64[:, :, t], st64 = ssm.mlstm_step(
+                q[:, :, t], k[:, :, t], v[:, :, t], logi[..., t].double(),
+                logf[..., t].double(), st64)
+
+        def rel(a, b):
+            return float((a.double() - b).abs().max() / b.abs().max())
+
+        scan_err = {"h": rel(h, h64), "c": rel(c, st64[0]),
+                    "n": rel(n, st64[1]), "m": rel(m, st64[2])}
+        f_chunk = float(logf[..., :cfg.scan_chunk].sum(-1).abs().max())
+        print(f"check layer {m_layers[0]}'s chunked mLSTM over the "
+              f"{q.shape[2]}-token prompt ({q.shape[2] // cfg.scan_chunk} "
+              f"chunks of {cfg.scan_chunk}, {x.num_heads} heads of {hd}) vs "
+              f"a float64 sequential recurrence: max|diff| / max|ref| "
+              + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in scan_err.items())
+              + f" (bound {XL_SCAN_BOUND:g}); |F| at a chunk's end up to "
+              f"{f_chunk:.3g} | {smi}", flush=True)
+        check(max(scan_err.values()) <= XL_SCAN_BOUND,
+              "serve-xlstm: the chunked mLSTM is outside its bound of the "
+              "float64 recurrence")
+        del q, k, v, logi, logf, h, h64, st64, xi, window, xc
+
+        # layer 3's sLSTM: prefill's token loop against the same tokens
+        # fed one at a time through decode at batch 1; and the loop
+        # against the cell run on prefill's own projections, bitwise
+        core = model.blocks[s_layers[0]].core
+        _, pre = core(xs, mode="prefill")
+        xg = dense(core.w_x, xs).float()
+        st = ssm.slstm_init_state(1, cfg.d_model, dev)
+        for t in range(xs.shape[1]):
+            _, st = ssm.slstm_cell(core, xg[:, t], st)
+        cells_same = all(torch.equal(a, b) for a, b in zip(pre, st))
+        dec = M.init_caches(cfg, 1, 1, device=dev)[s_pos[0]]["core"]
+        dec = type(dec)(*(t[0] for t in dec))
+        for t in range(xs.shape[1]):
+            core(xs[:, t:t + 1], mode="decode", cache=dec)
+        proj_flips = int((torch.cat([dense(core.w_x, xs[:, t:t + 1])
+                                     for t in range(xs.shape[1])], dim=1)
+                          != dense(core.w_x, xs)).sum())
+        slstm_err = {f: rel(getattr(dec, f), getattr(pre, f).double())
+                     for f in pre._fields}
+        print(f"check layer {s_layers[0]}'s sLSTM over the {xs.shape[1]}-"
+              f"token prompt: prefill's loop vs the cell on its own "
+              f"projections {'bitwise' if cells_same else 'DIFFER'}; vs "
+              f"{xs.shape[1]} decode steps at batch 1: max|diff| / max|ref| "
+              + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in slstm_err.items())
+              + f" (bound {XL_SLSTM_BOUND:g}; {proj_flips} of "
+              f"{xg.numel()} projected values differ between the 2,048-row "
+              f"and the 1-row products) | {smi}", flush=True)
+        check(cells_same and max(slstm_err.values()) <= XL_SLSTM_BOUND,
+              "serve-xlstm: the sLSTM's decode and prefill disagree")
+        del pre, xg, st, dec, xm, xs
+
+    # batch independence: the 2,048-token request alone in a fresh Engine
+    alone = engine().generate([requests[long_i]])[0]
+    same_toks = alone.tokens == results[long_i].tokens
+    print(f"check request {long_i} (prompt {lens[long_i]}) alone vs in the "
+          f"batch: tokens {'bitwise' if same_toks else 'DIFFER'}", flush=True)
+    check(same_toks, f"serve-xlstm: request {long_i} depends on its batch")
+
+    # the 1,300-token request's last decode logits against a cache-free
+    # forward over its tokens
+    seq = results[ragged].tokens[:-1]
+    with torch.no_grad():
+        ref = M.forward(model, tokens=torch.tensor([seq], device=dev))[0][
+            0, -1]
+    got = tap["logits"][slot_of[ragged]]
+    err = float((got - ref).abs().max() / ref.std())
+    agree = int(got[:cfg.vocab].argmax()) == int(ref[:cfg.vocab].argmax())
+    print(f"check request {ragged}'s last decode step (position "
+          f"{len(seq) - 1}, slot {slot_of[ragged]}) vs a cache-free forward "
+          f"over its {len(seq)} tokens: max|diff| / std(logits) = "
+          f"{err:.5f} (bound {XL_LOGIT_BOUND}), std {float(ref.std()):.4f}, "
+          f"argmax {'agrees' if agree else 'differs'} | phase "
+          f"{time.perf_counter() - t_phase:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | {smi}",
+          flush=True)
+    check(bool(torch.isfinite(got).all()) and err <= XL_LOGIT_BOUND,
+          "serve-xlstm: decode logits outside the bound of the cache-free "
+          "forward")
+    del model, results, got, ref, tap
+    gc.collect()
+    torch.cuda.empty_cache()
+    xlstm_f32_check(cfg, requests[ragged], seed, dev, smi)
+    print(f"serve-xlstm: the phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return entries
+
+
+def xlstm_f32_check(cfg, request, seed, dev, smi):
+    """Phase 17's float32 check: ``request`` through a fresh ``Engine`` on
+    ``cfg`` in float32 weights, whole; the last decode step's logits
+    against a cache-free forward, max |diff| / std within
+    ``XL_F32_BOUND``."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 53)
+    t0 = time.perf_counter()
+    model = M.init_params(cfg32, generator=gen, device=dev)
+    tap = {}
+
+    def last_logits(mod, args, kwargs, out):
+        if kwargs.get("mode") == "decode" and args[0].shape[1] == 1:
+            tap["logits"] = out[0][0, 0].clone()     # slot 0: alone
+
+    hook = model.register_forward_hook(last_logits, with_kwargs=True)
+    res = Engine(cfg32, model, max_len=XL_LEN, max_batch=XL_SLOTS,
+                 device=dev).generate([request])[0]
+    hook.remove()
+    seq = res.tokens[:-1]
+    with torch.no_grad():
+        ref = M.forward(model, tokens=torch.tensor([seq], device=dev))[0][
+            0, -1]
+    got = tap["logits"]
+    err = float((got - ref).abs().max() / ref.std())
+    print(f"check the {len(request.prompt)}-token request in float32 "
+          f"weights, all {cfg32.n_layers} layers "
+          f"({M.param_bytes(model) / 1e9:.3f} GB): last decode step vs a "
+          f"cache-free forward over {len(seq)} tokens: max|diff| / "
+          f"std(logits) = {err:.3g} (bound {XL_F32_BOUND:g}); "
+          f"{time.perf_counter() - t0:.1f} s | {smi}", flush=True)
+    check(bool(torch.isfinite(got).all()) and err <= XL_F32_BOUND,
+          "serve-xlstm: float32 decode logits outside the bound of the "
+          "cache-free forward")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3386,6 +3829,9 @@ def main(argv=None) -> int:
           flush=True)
     kernels += serve_hybrid_phase(args.seed, dev, smi)
     print(f"elapsed after phase 16: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    kernels += serve_xlstm_phase(args.seed, dev, smi)
+    print(f"elapsed after phase 17: {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)

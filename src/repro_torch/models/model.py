@@ -1,6 +1,6 @@
 """The language model: init, full-sequence forward, prefill and decode for
-the GQA- and MLA-attention architectures and the Mamba hybrids, dense or
-with experts.
+the GQA- and MLA-attention architectures, the Mamba hybrids and the
+xLSTM stacks, dense or with experts.
 
 The PyTorch counterpart of the reference's ``repro.models.model``, written
 as ``nn.Module``s: ``LM`` holds the embedding, one ``Block`` per layer
@@ -8,10 +8,11 @@ as ``nn.Module``s: ``LM`` holds the embedding, one ``Block`` per layer
 rmsnorm) and the head.  The reference stacks each period position's parameters on a leading
 ``n_periods`` axis and scans over it; here the layers are a plain loop
 (``_run_stack``), layer ``i * len(period) + j`` being period ``i``'s
-position ``j``.  A block's core is attention or, at a ``mamba`` period
-position, a Mamba block (``ssm``).  The caches keep the reference's
-layout: one ``KVCache`` (an ``MLACache`` for an MLA model, a
-``MambaState`` at a Mamba position) per period position with a leading
+position ``j``.  A block's core is attention or, at a ``mamba``,
+``mlstm`` or ``slstm`` period position, that recurrent block (``ssm``).
+The caches keep the reference's layout: one ``KVCache`` (an
+``MLACache`` for an MLA model; a ``MambaState``, ``MLSTMState`` or
+``SLSTMState`` at a recurrent position) per period position with a leading
 ``n_periods`` axis, so each layer's slice is contiguous; a sliding-window
 model's caches are rings of ``cfg.window`` slots (``attention``).  Code
 that handles caches reads their fields from the cache's own type.
@@ -24,8 +25,8 @@ float32, sequence-chunked as the reference does); its gradients come from
 torch autograd, ``remat`` recomputing each block in the backward.
 
 The port runs GQA attention (MHA included) with a dense or a ring KV cache,
-or MLA with a latent cache, Mamba blocks beside either, and a SwiGLU,
-GELU, MoE or no MLP.  A configuration that needs more raises
+or MLA with a latent cache, Mamba blocks beside either, mLSTM and sLSTM
+blocks, and a SwiGLU, GELU, MoE or no MLP.  A configuration that needs more raises
 ``NotImplementedError`` naming what is missing (``unsupported``).
 """
 
@@ -41,7 +42,7 @@ from .. import resolve_device
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm
-from .config import BlockSpec, MambaCfg, ModelConfig
+from .config import BlockSpec, MambaCfg, ModelConfig, XLSTMCfg
 from .layers import (SwiGLU, _param, embed_lookup, gelu_mlp, matmul_f32,
                      rmsnorm, rope_tables)
 
@@ -49,9 +50,6 @@ from .layers import (SwiGLU, _param, embed_lookup, gelu_mlp, matmul_f32,
 def unsupported(cfg: ModelConfig) -> List[str]:
     """What ``cfg`` needs that the port's model lacks (empty: it runs)."""
     missing = []
-    for kind in ("mlstm", "slstm"):
-        if any(sp.kind == kind for sp in cfg.period):
-            missing.append(kind)
     if cfg.is_encdec:
         missing.append("enc-dec")
     if cfg.embed_inputs:
@@ -67,14 +65,17 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the PyTorch port has no {', '.join(missing)} yet; "
             "it runs GQA attention models on dense or ring caches, MLA "
-            "models on latent caches and Mamba hybrids, dense or with "
-            "experts (e.g. stablelm-1.6b, mixtral-8x22b, "
-            "deepseek-v2-lite-16b, jamba-v0.1-52b)")
+            "models on latent caches, Mamba hybrids and xLSTM stacks, "
+            "dense or with experts (e.g. stablelm-1.6b, mixtral-8x22b, "
+            "deepseek-v2-lite-16b, jamba-v0.1-52b, xlstm-125m)")
 
 
 # ---------------------------------------------------------------------------
 # modules
 # ---------------------------------------------------------------------------
+
+#: a recurrent period position's core module, by ``BlockSpec.kind``
+_RECURRENT = {"mamba": ssm.Mamba, "mlstm": ssm.MLSTM, "slstm": ssm.SLSTM}
 
 
 class GeluMLP(nn.Module):
@@ -88,15 +89,16 @@ class GeluMLP(nn.Module):
 
 
 class Block(nn.Module):
-    """rmsnorm -> attention (or Mamba) -> residual, then rmsnorm -> MLP ->
-    residual."""
+    """rmsnorm -> attention (or a Mamba, mLSTM or sLSTM block) -> residual,
+    then rmsnorm -> MLP -> residual (no MLP where ``spec.mlp`` is
+    "none")."""
 
     def __init__(self, spec: BlockSpec, cfg: ModelConfig, dtype, device):
         super().__init__()
         self.cfg, self.spec = cfg, spec
         self.norm1 = _param((cfg.d_model,), dtype, device)
-        if spec.kind == "mamba":
-            core = ssm.Mamba
+        if spec.kind in _RECURRENT:
+            core = _RECURRENT[spec.kind]
         elif cfg.attn_type == "mla":
             core = attn.MLA
         else:
@@ -165,12 +167,15 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
     """A model of ``cfg`` with random weights drawn from ``generator``, as
     the reference draws them: the embedding N(0, 0.02^2), each projection
     N(0, 1/d_in) (an MoE router too, kept float32), the experts' ``wi``
-    and ``wg`` N(0, 1/d) and ``wo`` N(0, 1/(f * v)), a Mamba conv's
-    ``conv_w`` N(0, 1/d_conv^2) (``_init_scale``), norms ones (MLA's
-    latent ``c_norm`` too); drawn in float32, then cast to the
-    parameter's dtype.  A Mamba block's other leaves are set, not drawn
-    (``_MAMBA_FILLED``, as ``mamba_init``): ``a_log`` log(1..d_state) on
-    every channel, ``d_skip`` ones, ``dt_bias`` and ``conv_b`` zeros.
+    and ``wg`` N(0, 1/d) and ``wo`` N(0, 1/(f * v)), a Mamba or mLSTM conv's
+    ``conv_w`` N(0, 1/kernel^2) (``_init_scale``), norms ones (MLA's
+    latent ``c_norm`` and the mLSTM's ``out_norm`` too); drawn in
+    float32, then cast to the parameter's dtype.  The recurrent blocks'
+    other leaves are set, not drawn (``_FILLED``, as ``mamba_init``,
+    ``mlstm_init`` and ``slstm_init``): ``a_log`` log(1..d_state) on
+    every channel, ``d_skip`` ones, ``dt_bias`` and ``conv_b`` zeros; the
+    mLSTM's ``b_i`` zeros and ``b_f`` 3.0 (open forget gates), the
+    sLSTM's ``bias`` zeros.
     ``device=None`` means CUDA (``resolve_device``);
     ``device="meta"`` gives the shapes alone and allocates nothing (no
     generator needed).  The draws are made on the generator's device, so
@@ -188,8 +193,8 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
             if leaf.startswith("norm") or leaf.endswith("_norm"):
                 p.fill_(1.0)
                 continue
-            if leaf in _MAMBA_FILLED:
-                p.copy_(_MAMBA_FILLED[leaf](p))
+            if leaf in _FILLED:
+                p.copy_(_FILLED[leaf](p))
                 continue
             scale = _init_scale(cfg, name, p)
             w = torch.randn(p.shape, generator=generator,
@@ -198,21 +203,26 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
     return model
 
 
-#: a Mamba block's leaves that ``mamba_init`` sets rather than draws
-_MAMBA_FILLED = {
+#: the recurrent blocks' leaves that ``mamba_init``, ``mlstm_init`` and
+#: ``slstm_init`` set rather than draw
+_FILLED = {
     "a_log": lambda p: torch.log(torch.arange(
         1, p.shape[1] + 1, dtype=torch.float32, device=p.device)).expand(
             p.shape),
     "d_skip": torch.ones_like,
     "dt_bias": torch.zeros_like,
     "conv_b": torch.zeros_like,
+    "b_i": torch.zeros_like,
+    "b_f": lambda p: torch.full_like(p, 3.0),
+    "bias": torch.zeros_like,
 }
 
 
 def _init_scale(cfg: ModelConfig, name: str, p) -> float:
     """The standard deviation the reference draws parameter ``name`` at
     (``moe.py:moe_init`` for the 3-D expert leaves: (E*v, d, f) and
-    (E*v, f, d); ``ssm.py:mamba_init`` for ``conv_w`` (d_conv, di))."""
+    (E*v, f, d); ``ssm.py:mamba_init`` and ``mlstm_init`` for ``conv_w``
+    (kernel, di))."""
     if name == "embed":
         return 0.02
     if name.endswith(".conv_w"):
@@ -257,11 +267,11 @@ def _apply_block(bp: Block, x, cfg: ModelConfig, *, positions, mode, cache,
 def _run_stack(model: LM, x, *, positions, mode, caches, active=None,
                remat: bool = False, moe_impl: str = "capacity"):
     """Every layer in order.  ``caches``: one ``{"core": cache}`` per
-    period position (a ``KVCache``, an ``MLACache`` or a ``MambaState``),
-    leaves with a leading ``n_periods`` axis, or None.  Decode writes
-    each layer's rows in place through its view of them; a cache with a
-    ``length`` comes back with the new lengths, one without (a
-    ``MambaState``) as it is.
+    period position (a ``KVCache``, an ``MLACache``, or a recurrent
+    block's state), leaves with a leading ``n_periods`` axis, or None.
+    Decode writes each layer's rows in place through its view of them; a
+    cache with a ``length`` comes back with the new lengths, one without
+    (a recurrent state) as it is.
     ``remat`` (train mode, with autograd recording): each block runs under
     a non-reentrant ``torch.utils.checkpoint``, keeping only its input
     and recomputing the rest in the backward.
@@ -433,10 +443,14 @@ def init_caches(cfg: ModelConfig, bsz: int, max_len: int, *, device=None,
     (a ring, whatever ``max_len`` is); for an MLA model an ``MLACache`` of
     c_kv (n, B, max_len, r) and k_rope (n, B, max_len, rd); at a Mamba
     position a ``MambaState`` of h (n, B, di, d_state), float32 whatever
-    ``dtype`` is, and conv (n, B, d_conv - 1, di), with no length (its
-    size does not grow with the sequence).  Widening a narrow latent,
-    key, value or conv input is exact, so a float32 cache holds what the
-    reference's cache in the model's dtype holds."""
+    ``dtype`` is, and conv (n, B, d_conv - 1, di); at an mLSTM position an
+    ``MLSTMState`` of c (n, B, H, p, p), n (n, B, H, p) and m (n, B, H),
+    float32, and conv (n, B, kconv - 1, di); at an sLSTM position an
+    ``SLSTMState`` of c, n (ones), m (n, B, d), float32, and h (n, B, d).
+    The recurrent states have no length (their size does not grow with
+    the sequence).  Widening a narrow latent, key, value, conv input or
+    sLSTM h is exact, so a float32 cache holds what the reference's cache
+    in the model's dtype holds."""
     check_supported(cfg)
     dev = resolve_device(device)
     n = cfg.n_periods
@@ -445,11 +459,25 @@ def init_caches(cfg: ModelConfig, bsz: int, max_len: int, *, device=None,
         return torch.zeros((n, bsz) + shape, dtype=dtype, device=dev)
 
     def cache(spec: BlockSpec):
+        f32 = torch.float32
         if spec.kind == "mamba":
             m = cfg.mamba or MambaCfg()
             di = m.expand * cfg.d_model
-            return ssm.MambaState(h=zeros(di, m.d_state, dtype=torch.float32),
+            return ssm.MambaState(h=zeros(di, m.d_state, dtype=f32),
                                   conv=zeros(m.d_conv - 1, di))
+        if spec.kind == "mlstm":
+            x = cfg.xlstm or XLSTMCfg()
+            di = int(x.proj_factor_m * cfg.d_model)
+            nh, hd = x.num_heads, di // x.num_heads
+            return ssm.MLSTMState(c=zeros(nh, hd, hd, dtype=f32),
+                                  n=zeros(nh, hd, dtype=f32),
+                                  m=zeros(nh, dtype=f32),
+                                  conv=zeros(x.conv_kernel - 1, di))
+        if spec.kind == "slstm":
+            d = cfg.d_model
+            return ssm.SLSTMState(c=zeros(d, dtype=f32),
+                                  n=zeros(d, dtype=f32) + 1.0,
+                                  h=zeros(d), m=zeros(d, dtype=f32))
         length = torch.zeros((n, bsz), dtype=torch.int32, device=dev)
         if cfg.attn_type == "mla":
             return attn.MLACache(zeros(max_len, cfg.kv_lora_rank),
@@ -470,7 +498,7 @@ def pad_caches_to(cfg: ModelConfig, caches, max_len: int):
     """Grow prefill-shaped caches (sequence axis == prefill length) to
     ``max_len`` with zero rows so decode can append: a ``KVCache``'s k, v
     (n, B, S, K, hd), an ``MLACache``'s c_kv, k_rope (n, B, S, .).  Ring
-    caches are ``cfg.window`` slots already and a ``MambaState`` (no
+    caches are ``cfg.window`` slots already and a recurrent state (no
     length) is O(1) in the sequence: both are left as they are."""
     if cfg.window is not None:
         return list(caches)

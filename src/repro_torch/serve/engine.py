@@ -10,11 +10,12 @@ slot cache, ``models.init_caches``).
 
 Prefill streams in ``prefill_chunk``-token pieces at batch 1, every chunk
 padded to the same width, interleaved with decode steps; a sliding-window
-model (ring caches) and a model with Mamba blocks (SSM states, whose
-chunked scan takes the prompt whole) prefill each prompt whole at batch 1
-instead, as the reference does, and splice each cache's fields (a ring,
-a KV cache padded to ``max_len``, a ``MambaState``'s h and conv) into
-the slot.  Every model call runs the MoE layers' ``dense`` dispatch, as
+model (ring caches) and a model with recurrent blocks (Mamba, mLSTM or
+sLSTM states, whose scans take the prompt whole) prefill each prompt
+whole at batch 1 instead, as the reference does, and splice each cache's
+fields (a ring, a KV cache padded to ``max_len``, a ``MambaState``'s h
+and conv, an ``MLSTMState``'s c, n, m and conv, an ``SLSTMState``'s c,
+n, h and m) into the slot.  Every model call runs the MoE layers' ``dense`` dispatch, as
 the reference's engine does.
 Every decode step runs all ``max_batch`` rows with idle and mid-prefill
 slots masked (``active``: their caches and lengths stay as they were).
@@ -22,8 +23,8 @@ Fixed shapes and row-parallel math make a request's logits bitwise
 independent of its batchmates, so greedy tokens are the same alone or
 batched.  On a CUDA device each decode step's attention is K2
 (``kernels.flash_decode``) in every GQA layer (an MLA model decodes
-absorbed in its latent space, in float32 einsums; a Mamba layer takes
-one recurrent step of its state), and ``mean_logprob`` is one segmented
+absorbed in its latent space, in float32 einsums; a Mamba, mLSTM or
+sLSTM layer takes one recurrent step of its state), and ``mean_logprob`` is one segmented
 mean through ``repro_torch.reduce``: K1 on the ``cuda`` backend.
 
 Sampling differs from the reference in how, not in what it promises.  The
@@ -89,7 +90,7 @@ class Engine:
 
     ``max_batch`` decode slots share one pre-allocated float32 cache of
     ``max_len`` context each (a ring of ``cfg.window`` slots for a
-    sliding-window model; a fixed-size state at each Mamba layer);
+    sliding-window model; a fixed-size state at each recurrent layer);
     ``num_pages`` x ``page_size`` tokens of KV pool gate admission
     (default: exactly enough for every slot at full context, so admission
     is slot-bound; shrink it to exercise queueing).
@@ -120,8 +121,8 @@ class Engine:
         self._caches = init_caches(cfg, max_batch, max_len,
                                    device=self.device)
         # chunked prefill streams through the attention extend path; ring
-        # (sliding-window) caches must not see padded chunk writes and SSM
-        # states have no extend path (their decode takes one token a
+        # (sliding-window) caches must not see padded chunk writes and
+        # recurrent states have no extend path (their decode takes one token a
         # row), so those models prefill whole-prompt, as the reference's
         self._extend_ok = (all(sp.kind == "attn" for sp in cfg.period)
                            and cfg.window is None)
@@ -160,7 +161,7 @@ class Engine:
 
     def _classic_prefill(self, slot: int, toks):
         """Whole-prompt prefill at batch 1, padded to ``max_len`` (a ring
-        is its ``cfg.window`` slots already, a ``MambaState`` O(1)) and
+        is its ``cfg.window`` slots already, a recurrent state O(1)) and
         spliced into the slot field by field."""
         logits, sub, _ = forward(self.model, tokens=toks, mode="prefill",
                                  moe_impl="dense")

@@ -1,10 +1,10 @@
 """The port's configuration copies and model support against the
 reference, on the CPU: every architecture's CONFIG and SMOKE equal the
 reference's, the GQA ones (dense or with experts, dense or ring caches),
-the MLA one and the Mamba hybrid build, the rest raise naming what the
-port lacks, and stablelm-1.6b's, deepseek-v2-lite-16b's and
-jamba-v0.1-52b's full-width parameter shapes match the reference's
-``init_params`` (both abstract: nothing is allocated)."""
+the MLA one, the Mamba hybrid and the xLSTM stack build, the rest raise
+naming what the port lacks, and stablelm-1.6b's, deepseek-v2-lite-16b's,
+jamba-v0.1-52b's and xlstm-125m's full-width parameter shapes match the
+reference's ``init_params`` (both abstract: nothing is allocated)."""
 
 import dataclasses
 
@@ -27,12 +27,13 @@ ARCH = "stablelm-1.6b"
 def test_config_copy_and_model_support(arch):
     """CONFIG and SMOKE equal the reference's field for field; a GQA
     model (mixtral-8x22b's experts included), an MLA one
-    (deepseek-v2-lite-16b) or a Mamba hybrid (jamba-v0.1-52b) builds on
-    the meta device (nothing allocated) with the reference's parameter
-    count plus its norms and, for each Mamba layer, the leaves
-    ``param_counts`` leaves out (``_mamba_uncounted``); any other
-    configuration raises NotImplementedError naming everything the port
-    lacks."""
+    (deepseek-v2-lite-16b), a Mamba hybrid (jamba-v0.1-52b) or an xLSTM
+    stack (xlstm-125m) builds on the meta device (nothing allocated) with
+    the reference's parameter count plus its norms (a second one only in
+    a block with an MLP) and, for each recurrent layer, the leaves
+    ``param_counts`` leaves out (``_mamba_uncounted``,
+    ``_xlstm_uncounted``); any other configuration raises
+    NotImplementedError naming everything the port lacks."""
     assert TC.ARCH_IDS == RC.ARCH_IDS
     for get in ("get_config", "get_smoke_config"):
         ref = getattr(RC, get)(arch)
@@ -46,11 +47,14 @@ def test_config_copy_and_model_support(arch):
     missing = TM.unsupported(cfg)
     if not missing:
         model = TM.init_params(cfg, device="meta")
-        norms = (2 * cfg.n_layers + 1) * cfg.d_model  # param_counts has none
+        with_mlp = sum(sp.mlp != "none" for sp in cfg.period) \
+            * cfg.n_periods                           # param_counts has no
+        norms = (cfg.n_layers + with_mlp + 1) * cfg.d_model       # norms
         if cfg.attn_type == "mla":                      # nor MLA's c_norm
             norms += cfg.n_layers * cfg.kv_lora_rank
         assert sum(p.numel() for p in model.parameters()) \
-            == cfg.param_counts()["total"] + norms + _mamba_uncounted(cfg)
+            == cfg.param_counts()["total"] + norms + _mamba_uncounted(cfg) \
+            + _xlstm_uncounted(cfg)
         return
     with pytest.raises(NotImplementedError) as e:
         TM.init_params(cfg, device="meta")
@@ -76,12 +80,31 @@ def _mamba_uncounted(cfg) -> int:
     return n * (2 * dt_rank * di + cfg.mamba.d_state * di + di)
 
 
+def _xlstm_uncounted(cfg) -> int:
+    """What ``param_counts`` leaves out of each mLSTM and sLSTM layer of
+    the reference's ``mlstm_init`` and ``slstm_init`` trees.  Of an
+    mLSTM it counts in_proj, the q, k, v projections as block-diagonal
+    (3 di^2 / H), out_proj and three di vectors; the tree holds full
+    (di, di) projections, conv_w (kernel x di), w_if (di x 2H), b_i and
+    b_f (H each) and conv_b and out_norm (di each): 3 di^2 (1 - 1/H) +
+    (kernel - 1) di + 2 H di + 2 H, 5,325,320 at xlstm-125m's width.  Of
+    an sLSTM it counts w_x, w_h and the FFN; the tree also holds the 4 d
+    bias (3,072)."""
+    x = cfg.xlstm
+    n_m = sum(sp.kind == "mlstm" for sp in cfg.period) * cfg.n_periods
+    n_s = sum(sp.kind == "slstm" for sp in cfg.period) * cfg.n_periods
+    if not (n_m or n_s):
+        return 0
+    di, h = int(x.proj_factor_m * cfg.d_model), x.num_heads
+    return n_m * (3 * di * di - 3 * di * di // h + (x.conv_kernel - 1) * di
+                  + 2 * h * di + 2 * h) + n_s * 4 * cfg.d_model
+
+
 def test_unsupported_names_each_missing_kind():
-    """Experts, ring caches, MLA and Mamba are ported: mixtral-8x22b,
-    deepseek-v2-lite-16b and jamba-v0.1-52b run; the others raise naming
-    what they lack."""
-    want = {"xlstm-125m": {"mlstm", "slstm"},
-            "qwen2-vl-7b": {"embed_inputs", "mrope"},
+    """Experts, ring caches, MLA, Mamba and xLSTM are ported:
+    mixtral-8x22b, deepseek-v2-lite-16b, jamba-v0.1-52b and xlstm-125m
+    run; the others raise naming what they lack."""
+    want = {"qwen2-vl-7b": {"embed_inputs", "mrope"},
             "seamless-m4t-large-v2": {"enc-dec"}}
     for arch, kinds in want.items():
         assert set(TM.unsupported(TC.get_config(arch))) >= kinds, arch
@@ -89,7 +112,7 @@ def test_unsupported_names_each_missing_kind():
             TM.check_supported(TC.get_config(arch))
         assert all(k in str(e.value) for k in kinds), arch
     for arch in (ARCH, "mixtral-8x22b", "deepseek-v2-lite-16b",
-                 "jamba-v0.1-52b"):
+                 "jamba-v0.1-52b", "xlstm-125m"):
         assert TM.unsupported(TC.get_config(arch)) == []
 
 
@@ -177,3 +200,28 @@ def test_jamba_full_width_shapes_on_meta_match_eval_shape():
     assert sum(p.numel() for p in model.parameters()
                if p.dtype == torch.float32) == f32
     assert TM.param_bytes(model) == 2 * (n - f32) + 4 * f32
+
+
+def test_xlstm_full_width_shapes_on_meta_match_eval_shape():
+    """xlstm-125m's CONFIG at all 12 layers (mLSTM at period positions
+    0-2, sLSTM at 3; no MLP; tied embeddings, so no head): every
+    parameter's shape against ``jax.eval_shape`` of the reference's
+    init_params; 153,370,440 parameters on both sides (``param_counts``'s
+    105,423,360 plus the 13 norms, 9 x 5,325,320 uncounted mLSTM leaves
+    and 3 x 3,072 sLSTM biases); ``param_bytes`` counts the float32
+    leaves (each mLSTM's w_if, b_i, b_f, each sLSTM's bias) at 4 bytes,
+    the rest at 2: 306,980,640 bytes."""
+    ref, got, model = _meta_against_eval_shape("xlstm-125m")
+    assert got == ref
+    assert {"blocks/0/core/w_if", "blocks/2/core/out_norm",
+            "blocks/3/core/w_h", "blocks/3/core/bias"} <= set(got)
+    assert "lm_head" not in got
+    cfg = TC.get_config("xlstm-125m")
+    assert cfg.param_counts()["total"] == 105_423_360
+    n = sum(p.numel() for p in model.parameters())
+    assert n == sum(int(np.prod(s)) for s in ref.values()) == 153_370_440
+    assert n == 105_423_360 + 13 * 768 + 9 * 5_325_320 + 3 * 3_072
+    f32 = 9 * (1_536 * 8 + 4 + 4) + 3 * 4 * 768
+    assert sum(p.numel() for p in model.parameters()
+               if p.dtype == torch.float32) == f32
+    assert TM.param_bytes(model) == 2 * (n - f32) + 4 * f32 == 306_980_640

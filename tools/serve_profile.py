@@ -4,6 +4,8 @@
     python3 tools/serve_profile.py [--seed 0] [--steps 4]   # needs CUDA
     python3 tools/serve_profile.py --arch deepseek-v2-lite-16b --max-len 4096
     python3 tools/serve_profile.py --arch jamba-v0.1-52b --layers 16
+    python3 tools/serve_profile.py --arch xlstm-125m --max-len 2176 \
+        --prefill-tokens 2048
 
 Builds ``--arch`` at full width (stablelm-1.6b by default; bf16, random
 weights from ``--seed``), its depth cut to ``--layers`` (a multiple of
@@ -16,8 +18,9 @@ tokens, then times and profiles, each after a warm-up:
     each call writing the same cache row; a Mamba layer's state steps on
     from call to call);
   * a 32-token prefill chunk of slot 0 (``Engine._prefill_chunk``), or,
-    for a model the engine prefills whole (ring caches, Mamba states),
-    slot 0's whole prompt (``Engine._classic_prefill``).
+    for a model the engine prefills whole (ring caches, recurrent
+    states), slot 0's whole prompt (``Engine._classic_prefill``), or a
+    prompt of ``--prefill-tokens`` random tokens.
 
 For each it prints the wall time per call (host clock around
 synchronized calls), the device's busy time per call (the sum of the CUDA
@@ -88,6 +91,9 @@ def main(argv=None) -> int:
     ap.add_argument("--max-len", type=int, default=1024)
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers (whole periods)")
+    ap.add_argument("--prefill-tokens", type=int, default=None,
+                    help="the whole-prompt prefill's length (default: slot "
+                         "0's prompt)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -119,10 +125,8 @@ def main(argv=None) -> int:
                                          generator=host).tolist(),
                     max_new_tokens=8) for n in lens]
     res = eng.generate(reqs)
-    # the slots' lengths, from the first cache that keeps them (a Mamba
-    # state has none)
-    lengths = next(c["core"].length[0].clone() for c in eng._caches
-                   if "length" in c["core"]._fields)
+    # the slots' positions: every token but the last is in the cache
+    lengths = torch.tensor([len(r.tokens) - 1 for r in res], device=dev)
     toks = torch.tensor([[r.tokens[-1]] for r in res], device=dev)
     active = torch.ones(8, dtype=torch.bool, device=dev)
     print(f"{cfg.name} at {cfg.n_layers} layers; prompts {lens}; cache "
@@ -137,7 +141,10 @@ def main(argv=None) -> int:
                 0, chunk, 0, 32), args.steps, args.top)
         else:
             prompt = torch.tensor([reqs[0].prompt], device=dev)
-            profile(f"whole-prompt prefill ({lens[0]} tokens)",
+            if args.prefill_tokens is not None:
+                prompt = torch.randint(1, cfg.vocab, (1, args.prefill_tokens),
+                                       generator=host).to(dev)
+            profile(f"whole-prompt prefill ({prompt.shape[1]} tokens)",
                     lambda: eng._classic_prefill(0, prompt), args.steps,
                     args.top)
     return 0
