@@ -22,8 +22,11 @@ through the dense MoE.  Then deepseek-v2-lite-16b whole (all 27 layers,
 full width) served through the ``Engine`` on latent caches, its
 multi-head latent attention decoding absorbed.  Then jamba-v0.1-52b at
 full width (16 of its 32 layers) served through the ``Engine``: Mamba
-blocks on O(1) states beside GQA attention on K2.  Last, xlstm-125m whole
+blocks on O(1) states beside GQA attention on K2.  Then xlstm-125m whole
 served through the ``Engine``: mLSTM and sLSTM blocks on O(1) states.
+Last, deepseek-v2-lite-16b at full width (4 of its 27 layers) trained
+through the port's train step: its experts under the capacity dispatch
+with an ordered backward, the microbatch mean and the clip's norm on K1.
 All data is drawn from ``--seed``.  Phases, in order; any failure exits nonzero:
 
 1. device — the card's name and power limit, as nvidia-smi prints them;
@@ -197,7 +200,30 @@ All data is drawn from ``--seed``.  Phases, in order; any failure exits nonzero:
    decode step against the bytes' bound (weights once, states read and
    written), the whole-prompt prefills at 2,048 and 1,300, an mLSTM and
    an sLSTM layer's decode and prefill, generated tokens/s, the
-   parameter and state bytes, peak memory.
+   parameter and state bytes, peak memory;
+18. train-moe — deepseek-v2-lite-16b's ``CONFIG`` at full width cut to
+   4 of 27 layers (random weights from the seed, 2,758,823,936
+   parameters) on phase 11's batch, microbatches and schedule, remat on,
+   the ``capacity`` dispatch: (1) each MoE layer's share of dropped
+   (token, choice) pairs at step 1; five juggler steps, the loss finite
+   and lower at step 5 than at step 1, ``aux`` finite and positive, no
+   kernel launched (counts set to 0 just before, read just after);
+   (2) one microbatch's gradients computed twice from the same weights
+   bitwise equal in all 19 leaves (the dispatch's ordered backward; the
+   same with autograd's ``scatter_add`` backward is printed beside it);
+   (3) one MoE layer in float32 at full width (64 experts top-6, d 2,048,
+   f 1,408) over 512 tokens: ``capacity`` with room for every choice
+   against ``dense``, the loss and the gradients of x, the router, the
+   experts and the shared SwiGLU within ``MOE_DISPATCH_REL``; at the
+   configured capacity choices drop and every gradient is finite; (4) at
+   2 layers a step with ``grad_reduce`` and ``norm_policy`` under
+   ``exact`` launches K1 exactly 58 times (19 + 2 x 19 + 1) and no other
+   kernel, each launch bitwise its plain version, and the step's
+   reductions bitwise the ``blocked`` executor; timings: ms per juggler
+   and exact step, tokens/s, peak memory, K1's and the domain
+   preparation's ms inside an exact step, K1 against its bound and
+   ``torch.sum``, one MoE layer's forward and backward at a microbatch's
+   shape under both dispatches.
 
 Times are CUDA-event medians after a warm-up (plain versions: one
 host-clock run; K1 on the train path: the sum over a step's launches,
@@ -463,6 +489,41 @@ XL_LOGIT_BOUND = 0.25
 #: function summed in other orders, a few float32 ulps a layer; as
 #: HYB_F32_BOUND
 XL_F32_BOUND = 1e-3
+#: the train-moe phase: deepseek-v2-lite-16b's published CONFIG (phase
+#: 15's) at full width, cut in depth: a layer adds 584,847,872 parameters
+#: (MLA about 13.8 M; 64 routed experts of 3 x 2,048 x 1,408; 2 shared of
+#: 1,408 columns each; the router, 2,048 x 64), the embedding and the
+#: untied head 419,432,448.  Whole (27 layers) its train state (bf16
+#: weights and gradients, two float32 AdamW moments) needs about 195 GB;
+#: at 4 layers it holds 2,758,823,936 parameters (5.52 GB of bf16
+#: weights, 22.07 GB of moments).  Phase 11's batch (8 x 256 tokens of
+#: ``SyntheticLM``), 4 microbatches and schedule; remat on; the
+#: ``capacity`` dispatch (the reference's default)
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "deepseek-v2-lite-16b", 4
+#: the exact step (``grad_reduce`` and ``norm_policy`` "exact") keeps the
+#: m microbatch gradients and the domain of the leaf it reduces: phase
+#: 11's exact step peaked at about 29.5 bytes a parameter, so it runs at
+#: 2 layers (1,589,128,192 parameters; its largest leaf, blocks/0/mlp/wi
+#: at 2 x 64 x 2,048 x 1,408 = 369,098,752 values, larger than any phase
+#: 11 reduced)
+MOE_K1_LAYERS = 2
+#: deepseek's reference leaves (19 whatever the depth) and K1's launches
+#: in its exact step: one microbatch mean a leaf, two a leaf and one
+#: across the leaves for the clip's norm
+MOE_LEAVES = 19
+MOE_K1_PER_STEP = MOE_LEAVES + 2 * MOE_LEAVES + 1
+#: the dispatch check: one MoE layer at full width in float32 over 512
+#: tokens (one microbatch's 2 x 256) of N(0, 1) values, the loss
+#: sum(y * c) + 0.01 aux for N(0, 1) c.  With a capacity of 512 nothing
+#: drops (a token chooses an expert once), so ``capacity`` and ``dense``
+#: are one function of the same router choices, summed in other orders:
+#: the combine over 6 choices against 64 gates (58 of them exact zeros),
+#: x's gradient over the kept choices against all 64 experts, the
+#: experts' gradients over the capacity buffer's rows against all 512
+#: tokens (the unchosen exact zeros).  So each gradient leaf agrees to a
+#: few float32 ulps of its sums: max |capacity - dense| over the leaf's
+#: largest |dense| within MOE_DISPATCH_REL
+MOE_DISPATCH_TOKENS, MOE_DISPATCH_REL = 512, 1e-5
 
 
 def fail(msg: str) -> int:
@@ -3524,6 +3585,362 @@ def xlstm_f32_check(cfg, request, seed, dev, smi):
     torch.cuda.empty_cache()
 
 
+def moe_drop_shares(model, batch, m):
+    """Each MoE layer's share of (token, choice) pairs that the capacity
+    dispatch drops over the m microbatches of ``batch``, at the model's
+    present weights (the routing a train step's forward takes)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    kept, total, hooks = {}, {}, []
+    for i, blk in enumerate(model.blocks):
+        if not isinstance(blk.mlp, moe.MoE):
+            continue
+
+        def hook(mod, args, _out, i=i):
+            x = args[0]
+            r = moe.capacity_route(mod.router, x.reshape(-1, x.shape[-1]),
+                                   mod.cfg)
+            n = x.shape[0] * x.shape[1] * r.w.shape[2]   # padding cut off
+            kept[i] = kept.get(i, 0) + int(r.keep.reshape(-1)[:n].sum())
+            total[i] = total.get(i, 0) + n
+        hooks.append(blk.mlp.register_forward_hook(hook))
+    try:
+        with torch.no_grad():
+            for j in range(m):
+                toks = batch["tokens"].reshape(
+                    (m, -1) + batch["tokens"].shape[1:])[j]
+                M.forward(model, tokens=toks)
+    finally:
+        for h in hooks:
+            h.remove()
+    return {i: 1.0 - kept[i] / total[i] for i in sorted(kept)}
+
+
+def one_microbatch_grads(model, batch, m):
+    """The first microbatch's gradients in the reference's layout, as the
+    train step's autograd pass computes them (remat on, ``capacity``)."""
+    return microbatch_grads(model, {k: v.reshape((m, v.shape[0] // m)
+                                                 + v.shape[1:])[0]
+                                    for k, v in batch.items()}, 1)[0]
+
+
+class PlainDispatch:
+    """Inside ``with``: the capacity dispatch's gather with autograd's own
+    backward (a ``scatter_add`` of the slots' gradients, float atomics on
+    the card) in place of ``moe._DispatchGather``'s ordered sum."""
+
+    @staticmethod
+    def apply(xg, slots, src, k):
+        import torch
+        import torch.nn.functional as F
+        ng, g, d = xg.shape
+        return torch.gather(F.pad(xg, (0, 0, 0, 1)), 1,
+                            slots[..., None].expand(ng, slots.shape[1], d))
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.real = moe, moe._DispatchGather
+        moe._DispatchGather = PlainDispatch
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._DispatchGather = self.real
+
+
+def moe_dispatch_check(cfg, seed, dev, smi):
+    """Check 3 of phase 18: one MoE layer of ``cfg`` at full width in
+    float32 over ``MOE_DISPATCH_TOKENS`` tokens; ``capacity`` with room
+    for every choice against ``dense``, every gradient within
+    ``MOE_DISPATCH_REL``; then ``capacity`` at the configured capacity:
+    drops, and every gradient finite."""
+    import dataclasses
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 61)
+    layer = moe.MoE(cfg32, torch.float32, dev)
+    with torch.no_grad():
+        for name, p in layer.named_parameters():
+            p.normal_(generator=gen).mul_(
+                M._init_scale(cfg32, "blocks.0.mlp." + name, p))
+    layer.requires_grad_(True)
+    t, d = MOE_DISPATCH_TOKENS, cfg.d_model
+    x = torch.randn((1, t, d), generator=gen, device=dev)
+    ct = torch.randn((1, t, d), generator=gen, device=dev)
+    names = ["x"] + [n for n, _ in layer.named_parameters()]
+
+    def grads(impl, capacity=None):
+        xx = x.clone().requires_grad_(True)
+        y, aux = moe.moe_apply(layer, xx, cfg32, impl=impl,
+                               capacity=capacity)
+        loss = torch.sum(y * ct) + 0.01 * aux
+        gs = torch.autograd.grad(loss, [xx] + list(layer.parameters()))
+        return dict(zip(names, gs)), float(loss.detach())
+
+    full = moe.capacity_route(layer.router, x[0], cfg32, capacity=t)
+    configured = moe.capacity_route(layer.router, x[0], cfg32)
+    gc_, lc = grads("capacity", capacity=t)
+    gd, ld = grads("dense")
+    rel = {n: float((gc_[n] - gd[n]).abs().max() / gd[n].abs().max())
+           for n in names}
+    worst = max(rel, key=rel.get)
+    dropped = int((~configured.keep).sum())
+    gq, lq = grads("capacity")
+    finite = all(bool(torch.isfinite(g).all()) for g in gq.values())
+    print(f"check train-moe dispatch: one MoE layer at full width in "
+          f"float32 (E {cfg.moe.num_experts}, top-{cfg.moe.top_k}, d {d}, "
+          f"f {cfg.moe.d_ff_expert}, {cfg.moe.num_shared} shared) over "
+          f"{t} tokens: capacity {t} ({int((~full.keep).sum())} dropped) "
+          f"vs dense, loss {lc!r} vs {ld!r}, gradients max|diff| / "
+          f"max|dense|: " + ", ".join(f"{n} {rel[n]:.3g}" for n in names)
+          + f" (worst {worst}; bound {MOE_DISPATCH_REL:g}) | configured "
+          f"capacity {configured.cg}: {dropped} of {full.keep.numel()} "
+          f"choices dropped ({dropped / full.keep.numel():.4f}), loss "
+          f"{lq!r}, every gradient {'finite' if finite else 'NOT finite'}"
+          f" | {smi}", flush=True)
+    check(not bool((~full.keep).any()) and rel[worst] <= MOE_DISPATCH_REL
+          and dropped > 0 and finite,
+          f"train-moe: the capacity dispatch's gradients differ from the "
+          f"dense dispatch's ({worst} {rel[worst]:g}), or the configured "
+          f"capacity dropped {dropped} choices, or a gradient is not "
+          f"finite")
+    del layer, gc_, gd, gq
+    torch.cuda.empty_cache()
+
+
+def train_moe_phase(seed, dev, smi):
+    """Phase 18: deepseek-v2-lite-16b trained at full width through the
+    port's train step (the capacity dispatch under autograd, its ordered
+    backward); returns K1's entries for its exact step."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataCfg, SyntheticLM
+    from repro_torch.models import convert
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.optim import adamw
+    from repro_torch.train import init_state, make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    full = get_config(MOE_TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 41)
+    model = M.init_params(cfg, generator=gen, device=dev)
+    data = SyntheticLM(DataCfg(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH, seed=seed))
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in data.batch(0).items()}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    lr_fn = adamw.cosine_schedule(TRAIN_LR, 1, TRAIN_STEPS)
+    nparams = sum(p.numel() for p in model.parameters())
+    leaves = len(convert.reference_leaves(cfg))
+    print(f"train-moe: {cfg.name} at full width (d_model {cfg.d_model}, "
+          f"MLA latent {cfg.kv_lora_rank}, {cfg.moe.num_experts} experts "
+          f"top-{cfg.moe.top_k} + {cfg.moe.num_shared} shared, d_ff "
+          f"{cfg.moe.d_ff_expert}, vocab {cfg.vocab}, {cfg.dtype}) cut to "
+          f"{cfg.n_layers} of {full.n_layers} layers: {nparams} parameters "
+          f"({M.param_bytes(model) / 1e9:.3f} GB) in {leaves} reference "
+          f"leaves; batch {TRAIN_BATCH} x {TRAIN_SEQ} (SyntheticLM seed "
+          f"{seed}), {TRAIN_MB} microbatches, lr cosine({TRAIN_LR}, 1, "
+          f"{TRAIN_STEPS}), remat on, the capacity dispatch", flush=True)
+    check(leaves == MOE_LEAVES, f"train-moe: {leaves} reference leaves")
+
+    # 1. the juggler: five steps on the same batch, the loss falls, aux
+    # finite and positive; no kernel of the port (counts set to 0 just
+    # before, read just after).  Each layer's drops at step 1 first.
+    drops = moe_drop_shares(model, batch, TRAIN_MB)
+    print("train-moe: the share of (token, choice) pairs dropped by the "
+          "capacity dispatch at step 1, by layer: "
+          + ", ".join(f"{i} {v:.4f}" for i, v in drops.items()),
+          flush=True)
+    step = make_train_step(cfg, lr_fn=lr_fn, num_microbatches=TRAIN_MB,
+                           device=dev)
+    hold = {"model": model, "state": init_state(model)}
+
+    def one():
+        hold["model"], hold["state"], hold["metrics"] = step(
+            hold["model"], hold["state"], batch)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, auxs = [], []
+    for _ in range(TRAIN_STEPS):
+        one()
+        losses.append(float(hold["metrics"]["loss"]))
+        auxs.append(float(hold["metrics"]["aux"]))
+    torch.cuda.synchronize()
+    launched = read_launches()
+    print(f"main train-moe (juggler, m={TRAIN_MB}, {cfg.n_layers} layers):"
+          f" losses {losses}, aux {auxs}, grad norm "
+          f"{float(hold['metrics']['grad_norm']):.4f}, launches {launched}",
+          flush=True)
+    check(all(math.isfinite(v) for v in losses + auxs)
+          and losses[-1] < losses[0] and all(a > 0 for a in auxs)
+          and not any(launched.values()),
+          f"train-moe: the juggler's losses {losses} did not fall, aux "
+          f"{auxs} is not finite and positive, or a kernel ran "
+          f"({launched})")
+    jug_ms = cuda_ms(one, REPS)
+    jug_peak = torch.cuda.max_memory_allocated()
+    model = hold["model"]
+    del hold, one, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. one microbatch's gradients twice from the same weights: bitwise
+    # in every leaf (the ordered dispatch backward); with autograd's own
+    # scatter_add backward instead, how many leaves differ
+    g1 = one_microbatch_grads(model, batch, TRAIN_MB)
+    g2 = one_microbatch_grads(model, batch, TRAIN_MB)
+    diff = [k for k in g1 if not torch.equal(g1[k], g2[k])]
+    del g2
+    with PlainDispatch():
+        p1 = one_microbatch_grads(model, batch, TRAIN_MB)
+        p2 = one_microbatch_grads(model, batch, TRAIN_MB)
+    plain_diff = [k for k in p1 if not torch.equal(p1[k], p2[k])]
+    plain_vs = [k for k in p1 if not torch.equal(p1[k], g1[k])]
+    del p1, p2, g1
+    print(f"check train-moe repeatable: one microbatch's gradients twice "
+          f"from the same weights: {len(diff)} of {MOE_LEAVES} leaves "
+          f"differ{' (' + ', '.join(diff) + ')' if diff else ''}; with "
+          f"autograd's scatter_add dispatch backward instead: "
+          f"{len(plain_diff)} of {MOE_LEAVES} differ between two runs "
+          f"({', '.join(plain_diff) or 'none'}), {len(plain_vs)} differ "
+          f"from the ordered sum's", flush=True)
+    check(not diff, f"train-moe: a microbatch's gradients differ between "
+                    f"two runs in {diff}")
+
+    # 5. one MoE layer's forward and backward at a microbatch's shape
+    layer = model.blocks[0].mlp
+    hx = torch.randn((TRAIN_BATCH // TRAIN_MB, TRAIN_SEQ, cfg.d_model),
+                     generator=gen, device=dev).to(torch.bfloat16)
+    hc = torch.randn(hx.shape, generator=gen, device=dev)
+
+    def layer_fwd(impl):
+        def run():
+            with torch.no_grad():
+                moe.moe_apply(layer, hx, cfg, impl=impl)
+        return run
+
+    def layer_fwd_bwd(impl):
+        def run():
+            xx = hx.clone().requires_grad_(True)
+            y, aux = moe.moe_apply(layer, xx, cfg, impl=impl)
+            torch.autograd.grad(torch.sum(y.float() * hc) + 0.01 * aux,
+                                [xx] + list(layer.parameters()))
+        return run
+
+    layer_ms = {(impl, what): cuda_ms(fn(impl), REPS)
+                for impl in ("capacity", "dense")
+                for what, fn in (("forward", layer_fwd),
+                                 ("forward and backward", layer_fwd_bwd))}
+    del layer, hx, hc, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. capacity against dense at full width in float32
+    moe_dispatch_check(full, seed, dev, smi)
+
+    # 4. K1 on the train path at 2 layers: grad_reduce and norm_policy
+    # under exact launch K1 58 times a step, each launch bitwise its
+    # plain version; the step's reductions bitwise the blocked executor
+    cut = dataclasses.replace(full, n_layers=MOE_K1_LAYERS)
+    gen.manual_seed(seed + 42)
+    small = M.init_params(cut, generator=gen, device=dev)
+    step = make_train_step(cut, lr_fn=lr_fn, num_microbatches=TRAIN_MB,
+                           grad_reduce="exact", norm_policy="exact",
+                           device=dev)
+    hold = {"model": small, "state": init_state(small)}
+
+    def one():
+        hold["model"], hold["state"], hold["metrics"] = step(
+            hold["model"], hold["state"], batch)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with K1ByCaller() as calls:
+        one()
+    torch.cuda.synchronize()
+    launched, by_caller = read_launches(), calls.counts
+    met = hold["metrics"]
+    print(f"main train-moe (grad_reduce=exact, norm_policy=exact, m="
+          f"{TRAIN_MB}, {cut.n_layers} layers): loss "
+          f"{float(met['loss']):.4f}, aux {float(met['aux']):.4f}, grad "
+          f"norm {float(met['grad_norm']):.4f}, launches {launched} (K1 "
+          f"want {MOE_K1_PER_STEP}): grad_reduce {by_caller['grad_reduce']},"
+          f" global_norm {by_caller['global_norm']}", flush=True)
+    check(launched == {"K1": MOE_K1_PER_STEP, "K2": 0, "K3": 0, "K4": 0,
+                       "K5": 0}
+          and by_caller == {"grad_reduce": MOE_LEAVES,
+                            "global_norm": 2 * MOE_LEAVES + 1}
+          and bool(torch.isfinite(met["loss"]))
+          and bool(torch.isfinite(met["grad_norm"])),
+          f"train-moe: the exact step launched {launched} ({by_caller})")
+    exact_ms = cuda_ms(one, REPS)
+    exact_peak = torch.cuda.max_memory_allocated()
+    with K1Probe() as probe:
+        step_ms = cuda_ms(one, 1, warmup=0)
+    in_step_k1, in_step_prep = probe.k1_ms(), probe.prep_ms()
+    with K1Probe(measure=True) as probe, K1ByCaller(probe):
+        one()
+    check(all(r["ok"] for r in probe.records)
+          and len(probe.records) == MOE_K1_PER_STEP
+          and all(r["caller"] in by_caller for r in probe.records),
+          "train-moe: K1 differs from its plain version on an exact "
+          "step's launches")
+    entries = [k1_train_entry(f"segsum_policy_kernel<exact>/train-moe "
+                              f"{c} n_layers={MOE_K1_LAYERS}",
+                              [r for r in probe.records
+                               if r["caller"] == c], by_caller[c])
+               for c in ("grad_reduce", "global_norm")]
+    big = max((r["shape"] for r in probe.records), key=lambda s: s[0] * s[1])
+    print(f"check train-moe K1 exact on the step's {len(probe.records)} "
+          f"launches (largest stream {big[0]} x {big[1]}): every one "
+          f"bitwise its plain version", flush=True)
+    small = hold["model"]
+    del hold, one, step, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    gs = microbatch_grads(small, batch, TRAIN_MB)
+    del small
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_grad_reductions(gs, "exact", f"train-moe n_layers={MOE_K1_LAYERS}")
+    del gs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"time train-moe: juggler step at {cfg.n_layers} layers "
+          f"{jug_ms:.3f} ms ({tokens * 1e3 / jug_ms:.1f} tokens/s, peak "
+          f"memory {jug_peak / 2 ** 30:.2f} GiB) | exact step at "
+          f"{cut.n_layers} layers {exact_ms:.3f} ms ({tokens * 1e3 / exact_ms:.1f}"
+          f" tokens/s, peak memory {exact_peak / 2 ** 30:.2f} GiB) | inside "
+          f"one exact step of {step_ms:.3f} ms: K1 {in_step_k1:.3f} ms "
+          f"({MOE_K1_PER_STEP} launches), domain preparation "
+          f"{in_step_prep:.3f} ms | K1 grad_reduce {entries[0]['ms']:.3f} "
+          f"ms (bound {entries[0]['bound_ms']:.3f}, plain "
+          f"{entries[0]['plain_ms']:.1f}, torch.sum "
+          f"{entries[0]['library_ms']:.3f}), global_norm "
+          f"{entries[1]['ms']:.3f} ms (bound {entries[1]['bound_ms']:.3f}, "
+          f"plain {entries[1]['plain_ms']:.1f}, torch.sum "
+          f"{entries[1]['library_ms']}) | one MoE layer at "
+          f"{TRAIN_BATCH // TRAIN_MB} x {TRAIN_SEQ} tokens: "
+          + ", ".join(f"{impl} {what} {ms:.3f} ms"
+                      for (impl, what), ms in layer_ms.items())
+          + f" | the phase {time.perf_counter() - t_phase:.1f} s | {smi}",
+          flush=True)
+    return entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3832,6 +4249,9 @@ def main(argv=None) -> int:
           flush=True)
     kernels += serve_xlstm_phase(args.seed, dev, smi)
     print(f"elapsed after phase 17: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    kernels += train_moe_phase(args.seed, dev, smi)
+    print(f"elapsed after phase 18: {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -82,11 +82,38 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _matmul(x, w, torch.float32)
 
 
+class _NarrowBmm(torch.autograd.Function):
+    """a (E, m, k) @ b (E, k, n) of one narrow dtype on a CUDA device,
+    summed in float32 and returned as float32: ``_NarrowMatmul`` batched.
+    PyTorch has no derivative for ``bmm(out_dtype=)`` either, so each
+    gradient is one float32-summing batched product of the incoming
+    gradient with the other operand, rounded once to the operand's
+    dtype (the reference's ``dot_general`` transpose with
+    ``preferred_element_type=float32``)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = bmm_f32(g, b.transpose(1, 2)).to(a.dtype) \
+            if ctx.needs_input_grad[0] else None
+        gb = bmm_f32(a.transpose(1, 2), g).to(b.dtype) \
+            if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
 def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a (E, m, k) @ b (E, k, n) summed in float32, as float32: the
     batched form of ``matmul_f32`` (cuBLAS takes two narrow operands of
-    one dtype as they are; elsewhere they are widened first, exactly)."""
+    one dtype as they are, with the backward of ``_NarrowBmm``; elsewhere
+    they are widened first, exactly)."""
     if a.is_cuda and a.dtype == b.dtype and a.dtype != torch.float32:
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            return _NarrowBmm.apply(a, b)
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
 

@@ -19,14 +19,17 @@ through ``repro_torch.reduce`` (K1 on a CUDA device), the top-k axis as
 the stream and the tokens as the width.  ``combine_segsum`` is the top-k
 combine as one segmented sum through the same front door.
 
-The port runs the forward alone: a model with experts does not train yet
-(``train.make_train_step`` raises).  The reference's ``shard_hint`` and
-expert-parallel axes are dropped: the port runs on one device.
+Both dispatches run under autograd (``train.make_train_step``).  The
+capacity dispatch's gather reads a token's row once for every choice it
+kept; its backward (``_DispatchGather``) sums those slots' gradients in
+choice order, with no float atomics, so a step repeats bitwise.  The
+reference's ``shard_hint`` and expert-parallel axes are dropped: the port
+runs on one device.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn as nn
@@ -103,80 +106,150 @@ def _expert_ffn(p, xe):
     return bmm_f32(h, p.wo).to(xe.dtype)
 
 
+class CapacityRoute(NamedTuple):
+    """The capacity dispatch's routing of T tokens in nG groups of G:
+    ``w`` (nG, G, k) float32 combine weights (zero for padding tokens),
+    ``keep`` (nG, G*k) whether each (token, choice), token-major, found a
+    place in its expert's buffer of ``cg`` (the capacity), ``src`` (nG,
+    G*k) its slot there, e*Cg + place, or
+    the spare slot E*Cg where it was dropped, ``slots`` (nG, E*Cg) the
+    token in each slot, G (the zero row) where a slot is empty, ``aux``
+    the router's auxiliary loss."""
+    w: torch.Tensor
+    keep: torch.Tensor
+    cg: int
+    src: torch.Tensor
+    slots: torch.Tensor
+    aux: torch.Tensor
+
+
+def capacity_route(router_w, xt, cfg: ModelConfig, *,
+                   capacity: Optional[int] = None,
+                   group_size: int = MOE_GROUP) -> CapacityRoute:
+    """Route xt (T, d) as ``moe_apply_capacity`` does: the router's top-k,
+    each chosen expert expanded to its v virtual column shards, the tokens
+    in groups of ``group_size`` (the last padded with tokens of expert 0
+    and zero weight), a per-expert capacity Cg = ``capacity`` or
+    max(1, int(capacity_factor * G * k / E)), and each (token, choice),
+    token-major, at the next free place of its expert by cumulative
+    count; one past Cg is dropped to the spare slot."""
+    m = cfg.moe
+    t = xt.shape[0]
+    v = cfg.moe_virtual_split
+    e, k = m.num_experts * v, m.top_k * v
+    w, idx, aux = router_topk(router_w, xt, m)            # (T, k)
+    if v > 1:
+        # each chosen expert expands to its v virtual column shards, whose
+        # partial outputs sum in the combine (weights unchanged)
+        idx = (idx[:, :, None] * v
+               + torch.arange(v, device=xt.device)[None, None, :]
+               ).reshape(t, k)
+        w = torch.repeat_interleave(w, v, dim=1)
+    g = min(group_size, t)
+    ng = -(-t // g)
+    padt = ng * g - t
+    if padt:
+        idx = F.pad(idx, (0, 0, 0, padt))                 # expert 0
+        w = F.pad(w, (0, 0, 0, padt))                     # zero weight
+    cg = capacity or max(1, int(m.capacity_factor * g * k / e))
+    idx_g = idx.reshape(ng, g * k)                        # token-major
+    onehot = F.one_hot(idx_g, e).to(torch.int32)          # (nG, G*k, E)
+    pos = torch.cumsum(onehot, dim=1, dtype=torch.int32) - 1
+    pos = torch.gather(pos, 2, idx_g[..., None])[..., 0].long()
+    keep = pos < cg                                       # (nG, G*k)
+    # token ids into expert slots: (nG, E*Cg [+1 overflow]); empty slots
+    # hold token g, the zero row
+    src = torch.where(keep, idx_g * cg + pos, e * cg)
+    tok_in_g = (torch.arange(g * k, device=xt.device) // k).expand(ng, g * k)
+    slots = torch.full((ng, e * cg + 1), g, dtype=torch.long,
+                       device=xt.device)
+    slots.scatter_(1, src, tok_in_g)
+    return CapacityRoute(w.reshape(ng, g, k), keep, cg, src,
+                         slots[:, :e * cg], aux)          # drop overflow
+
+
+class _DispatchGather(torch.autograd.Function):
+    """The capacity dispatch's gather, xg (nG, G, d) -> (nG, E*Cg, d):
+    slot j of group n reads token ``slots[n, j]``'s row, or zeros where
+    ``slots`` holds G (an empty slot).
+
+    A token's row is read once for every choice it kept, so autograd's
+    backward (a ``scatter_add`` of the slots' gradients, float atomics on
+    the card) would sum up to k rows in no fixed order.  This backward
+    sums them in one: a token's gradient is 0 + the gradient of the slot
+    of its first kept choice + that of its second kept choice ..., in
+    choice order and in float32, rounded once to xg's dtype.  The slots
+    are read through ``src`` (the combine's index: a kept (token, choice)'s
+    slot, a dropped one's the spare slot E*Cg, whose gradient row is
+    zeros), so a dropped choice adds +0, which leaves the sum's bits as
+    they are; empty slots reach no token.  No float atomics."""
+
+    @staticmethod
+    def forward(ctx, xg, slots, src, k):
+        ng, g, d = xg.shape
+        xg_pad = F.pad(xg, (0, 0, 0, 1))                  # zero row @ G
+        ctx.save_for_backward(src)
+        ctx.k = k
+        return torch.gather(xg_pad, 1,
+                            slots[..., None].expand(ng, slots.shape[1], d))
+
+    @staticmethod
+    def backward(ctx, gy):
+        (src,) = ctx.saved_tensors
+        k = ctx.k
+        ng, _, d = gy.shape
+        g = src.shape[1] // k
+        gy_pad = F.pad(gy, (0, 0, 0, 1))                  # spare slot: 0
+        rows = torch.gather(gy_pad, 1, src[..., None].expand(ng, g * k, d))
+        rows = rows.reshape(ng, g, k, d).float()
+        acc = torch.zeros((ng, g, d), dtype=torch.float32, device=gy.device)
+        for j in range(k):
+            acc = acc + rows[:, :, j]
+        return acc.to(gy.dtype), None, None, None
+
+
 def moe_apply_capacity(p, x, cfg: ModelConfig, *,
                        capacity: Optional[int] = None,
                        group_size: int = MOE_GROUP):
     """x (B, S, d) -> ((B, S, d), aux): grouped gather dispatch.
 
-    Tokens go in groups of ``group_size`` (the last padded with zero
-    tokens of zero weight), each with a per-expert capacity Cg =
-    ``capacity`` or max(1, int(capacity_factor * G * k / E)).  Each
-    (token, choice), token-major, takes the next free slot of its expert
-    by cumulative count; one past Cg goes to the spare slot E*Cg, whose
-    row is zeros, so a dropped choice adds nothing.  The expert FFN runs
-    on the (E, Cg) buffers and each (token, choice) gathers its slot back
-    and sums its k rows weighted, in float32."""
+    ``capacity_route`` places each (token, choice); one past Cg goes to
+    the spare slot E*Cg, whose row is zeros, so a dropped choice adds
+    nothing.  The expert FFN runs on the (E, Cg) buffers and each (token,
+    choice) gathers its slot back and sums its k rows weighted, in
+    float32."""
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
-    v = cfg.moe_virtual_split
-    e, k = m.num_experts * v, m.top_k * v
+    e = m.num_experts * cfg.moe_virtual_split
     xt = x.reshape(t, d)
-    w, idx, aux = router_topk(p.router, xt, m)            # (T, k)
-    if v > 1:
-        # each chosen expert expands to its v virtual column shards, whose
-        # partial outputs sum in the combine (weights unchanged)
-        idx = (idx[:, :, None] * v
-               + torch.arange(v, device=x.device)[None, None, :]
-               ).reshape(t, k)
-        w = torch.repeat_interleave(w, v, dim=1)
+    r = capacity_route(p.router, xt, cfg, capacity=capacity,
+                       group_size=group_size)
+    ng, g, k = r.w.shape
+    cg, src = r.cg, r.src
+    if ng * g > t:
+        xt = F.pad(xt, (0, 0, 0, ng * g - t))
 
-    g = min(group_size, t)
-    ng = -(-t // g)
-    padt = ng * g - t
-    if padt:
-        xt = F.pad(xt, (0, 0, 0, padt))
-        idx = F.pad(idx, (0, 0, 0, padt))                 # expert 0
-        w = F.pad(w, (0, 0, 0, padt))                     # zero weight
-    cg = capacity or max(1, int(m.capacity_factor * g * k / e))
-
-    idx_g = idx.reshape(ng, g * k)                        # token-major
-    w_g = w.reshape(ng, g, k)
-
-    # position of each (token, choice) in its expert's per-group buffer
-    onehot = F.one_hot(idx_g, e).to(torch.int32)          # (nG, G*k, E)
-    pos = torch.cumsum(onehot, dim=1, dtype=torch.int32) - 1
-    pos = torch.gather(pos, 2, idx_g[..., None])[..., 0].long()
-    keep = pos < cg                                       # (nG, G*k)
-
-    # token ids into expert slots: (nG, E*Cg [+1 overflow]); empty slots
-    # hold token g, the zero row
-    slot = torch.where(keep, idx_g * cg + pos, e * cg)
-    tok_in_g = (torch.arange(g * k, device=x.device) // k).expand(ng, g * k)
-    slots = torch.full((ng, e * cg + 1), g, dtype=torch.long,
-                       device=x.device)
-    slots.scatter_(1, slot, tok_in_g)
-    slots = slots[:, :e * cg]                             # drop overflow
-
-    # dispatch gather: (nG, G+1, d) -> (nG, E*Cg, d)
-    xg_pad = F.pad(xt.reshape(ng, g, d), (0, 0, 0, 1))   # zero row @ G
-    xe = torch.gather(xg_pad, 1, slots[..., None].expand(ng, e * cg, d))
+    # dispatch gather: (nG, G, d) -> (nG, E*Cg, d)
+    xe = _DispatchGather.apply(xt.reshape(ng, g, d), r.slots, src, k)
     # expert FFN, the expert axis leading: (E, nG*Cg, d)
     xe = xe.reshape(ng, e, cg, d).transpose(0, 1).reshape(e, ng * cg, d)
     ye = _expert_ffn(p, xe)
     ye = ye.reshape(e, ng, cg, d).transpose(0, 1).reshape(ng, e * cg, d)
 
-    # combine gather: each (token, choice) reads its slot back
+    # combine gather: each (token, choice) reads its slot back.  Its
+    # backward (autograd's scatter_add) has one writer a kept slot; the
+    # dropped choices all write the spare row, which the pad's backward
+    # cuts off, so no sum there depends on an order
     ye_pad = F.pad(ye, (0, 0, 0, 1))                      # zero row
-    src = torch.where(keep, idx_g * cg + pos, e * cg)     # (nG, G*k)
     y_tk = torch.gather(ye_pad, 1, src[..., None].expand(ng, g * k, d))
     y_tk = y_tk.reshape(ng, g, k, d)
-    yt = torch.einsum("ngkd,ngk->ngd", y_tk.float(), w_g.float())
+    yt = torch.einsum("ngkd,ngk->ngd", y_tk.float(), r.w.float())
     yt = yt.reshape(ng * g, d)[:t].to(x.dtype)
 
     if m.num_shared:
         yt = yt + swiglu(p.shared, x.reshape(t, d))
-    return yt.reshape(b, s, d), aux
+    return yt.reshape(b, s, d), r.aux
 
 
 def moe_apply_dense(p, x, cfg: ModelConfig):
@@ -225,5 +298,6 @@ def moe_apply(p, x, cfg: ModelConfig, *, impl: str = "capacity",
     raise ValueError(impl)
 
 
-__all__ = ["MoE", "MOE_GROUP", "router_topk", "moe_apply_capacity",
+__all__ = ["MoE", "MOE_GROUP", "router_topk", "CapacityRoute",
+           "capacity_route", "moe_apply_capacity",
            "moe_apply_dense", "combine_segsum", "moe_apply"]

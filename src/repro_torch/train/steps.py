@@ -15,11 +15,14 @@ the integer tiers, and the update touches 12 tensors, not 219.
 
 On a CUDA device ``grad_reduce`` runs K1 once per leaf and ``norm_policy``
 twice per leaf and once across the leaves (37 launches a step for a dense
-model with both set); with both unset a step launches none of the port's
-kernels.  What this port lacks raises ``NotImplementedError`` naming the
+model with both set, 58 for deepseek-v2-lite's 19 leaves); with both
+unset a step launches none of the port's kernels.  A model with experts
+trains through ``moe_impl``'s dispatch (``models.moe``), its router,
+expert and shared leaves stacked as the others, its ``aux`` loss in the
+metrics.  What this port lacks raises ``NotImplementedError`` naming the
 ``ROADMAP.md`` item that brings it: ``grad_reduce_mesh`` and
-``logits_pspec`` (queue 1, item 5, multi-device), training a model with
-experts (item 8), other families (item 4).
+``logits_pspec`` (queue 1, item 5, multi-device), other families (item
+4).
 """
 
 from __future__ import annotations
@@ -38,8 +41,6 @@ from ..reduce.accumulator import (accumulate_microbatch_grads,
                                   reduce_microbatch_grads)
 
 _ITEM5 = "ROADMAP.md queue 1, item 5 (multi-device) brings it"
-_ITEM8 = ("ROADMAP.md queue 1, item 8 (MoE training on one device) brings "
-          "it")
 
 
 def _to_device(batch, dev):
@@ -89,14 +90,11 @@ def make_train_step(cfg: ModelConfig, *, lr_fn: Callable,
     integer tiers).  ``norm_policy`` routes the clip's global norm
     through ``repro_torch.reduce`` (``adamw.global_norm``).  The loss is
     the mean of the microbatch losses; ``lr`` is ``lr_fn(count + 1)``.
-    ``moe_impl`` is accepted for the reference's signature: a model with
-    experts raises here.  The step switches gradients on for every
-    parameter of the model it trains."""
+    ``moe_impl`` picks a model with experts' dispatch (``capacity``, the
+    reference's default, or ``dense``); the metrics carry its ``aux``
+    loss.  The step switches gradients on for every parameter of the
+    model it trains."""
     check_supported(cfg)
-    if any(sp.mlp == "moe" for sp in cfg.period):
-        raise NotImplementedError(f"make_train_step: {cfg.name} has "
-                                  f"experts (moe); training them is "
-                                  f"{_ITEM8}")
     if grad_reduce_mesh is not None:
         raise NotImplementedError(f"make_train_step(grad_reduce_mesh=): "
                                   f"{_ITEM5}")

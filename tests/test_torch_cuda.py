@@ -654,6 +654,44 @@ def test_cuda_narrow_matmul_backward_within_bf16_ulps_of_widened(out_dtype,
 
 
 @pytest.mark.cuda
+def test_cuda_narrow_bmm_backward_within_a_bf16_ulp_of_float64(cuda):
+    """``layers.bmm_f32`` on bf16 operands on the card (the experts' FFN)
+    runs ``_NarrowBmm``, whose forward is ``bmm(out_dtype=float32)`` bit
+    for bit and whose backward gives ga and gb in bf16: each within one
+    bf16 ulp of the float64 product rounded once to bf16, plus the
+    float32 sum's error, 2 k 2^-24 sum|terms| (k the summed
+    dimension)."""
+    from repro_torch.models import layers
+    rng = np.random.RandomState(6)
+    e, m, k, n = 4, 96, 256, 192
+    a0 = torch.tensor(rng.randn(e, m, k).astype(np.float32),
+                      device=cuda).to(torch.bfloat16)
+    b0 = torch.tensor((rng.randn(e, k, n) * 0.05).astype(np.float32),
+                      device=cuda).to(torch.bfloat16)
+    g = torch.tensor(rng.randn(e, m, n).astype(np.float32), device=cuda)
+    a, b = a0.clone().requires_grad_(True), b0.clone().requires_grad_(True)
+    y = layers.bmm_f32(a, b)
+    assert y.dtype == torch.float32
+    assert type(y.grad_fn).__name__ == "_NarrowBmmBackward", y.grad_fn
+    assert torch.equal(y.detach(),
+                       torch.bmm(a0, b0, out_dtype=torch.float32))
+    ga, gb = torch.autograd.grad(y, (a, b), g)
+    assert ga.dtype == gb.dtype == torch.bfloat16
+    gd, ad, bd = g.double(), a0.double(), b0.double()
+    for got, want, terms, kk in (
+            (ga, gd @ bd.transpose(1, 2),
+             gd.abs() @ bd.abs().transpose(1, 2), n),
+            (gb, ad.transpose(1, 2) @ gd,
+             ad.abs().transpose(1, 2) @ gd.abs(), m)):
+        rounded = want.to(torch.bfloat16).double()
+        ulp = torch.ldexp(torch.ones_like(rounded),
+                          torch.frexp(rounded).exponent - 8)
+        bound = ulp + 2 * kk * 2.0 ** -24 * terms
+        err = (got.double() - rounded).abs()
+        assert bool((err <= bound).all()), float((err - bound).max())
+
+
+@pytest.mark.cuda
 def test_cuda_checkpoint_of_card_leaves_restores_bitwise(cuda, tmp_path):
     """A tree of CUDA leaves (f32, bf16, an int32 scalar, a leaf of many
     compression chunks) saved and restored: onto the card by default,

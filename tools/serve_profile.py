@@ -67,9 +67,11 @@ def profile(label, fn, steps, top):
     kernels = [e for e in events
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
     busy = sum(dev(e) for e in kernels) / 1e3 / steps
+    launches = sum(e.count for e in kernels) / steps
     print(f"{label}: wall {wall:.3f} ms a call (host clock), device busy "
-          f"{busy:.3f} ms a call (profiler, {len(kernels)} kernel kinds), "
-          f"idle share {1 - busy / wall:.3f}", flush=True)
+          f"{busy:.3f} ms a call (profiler, {len(kernels)} kernel kinds, "
+          f"{launches:.0f} launches a call), idle share "
+          f"{1 - busy / wall:.3f}", flush=True)
     print(f"  by device time (ms a call, calls a call):")
     for e in sorted(kernels, key=dev, reverse=True)[:top]:
         print(f"    {dev(e) / 1e3 / steps:9.4f}  {e.count / steps:7.1f}  "
