@@ -24,10 +24,12 @@ multi-head latent attention decoding absorbed.  Then jamba-v0.1-52b at
 full width (16 of its 32 layers) served through the ``Engine``: Mamba
 blocks on O(1) states beside GQA attention on K2.  Then xlstm-125m whole
 served through the ``Engine``: mLSTM and sLSTM blocks on O(1) states.
-Last, deepseek-v2-lite-16b at full width (4 of its 27 layers) trained
+Then deepseek-v2-lite-16b at full width (4 of its 27 layers) trained
 through the port's train step: its experts under the capacity dispatch
 with an ordered backward, the microbatch mean and the clip's norm on K1.
-All data is drawn from ``--seed``.  Phases, in order; any failure exits nonzero:
+Last, qwen2-vl-7b whole served through the ``Engine`` (K2 at 7 query heads
+a KV head), its embedding-input forward and its M-RoPE on a patch grid's
+positions.  All data is drawn from ``--seed``.  Phases, in order; any failure exits nonzero:
 
 1. device — the card's name and power limit, as nvidia-smi prints them;
 2. build  — every CUDA source, one nvcc each, in parallel;
@@ -51,10 +53,10 @@ All data is drawn from ``--seed``.  Phases, in order; any failure exits nonzero:
    alone); K1 exact on a shuffled copy of the labels; the pre-pass
    bitwise at the main path's size;
 6. decode, kernel against plain — K2, K3 and K4 bitwise against their
-   plain versions at (B, H, K, S, d) = (3, 8, 2, 1,000, 64), K2 and K4
-   also at split_rows 128, 384 and 1,024 (per = 1 and > 1, dead splits
-   at both ends with window 200, a request with kv_len 0), and at full
-   width;
+   plain versions at (B, H, K, S, d) = (3, 8, 2, 1,000, 64) and (3, 14,
+   2, 1,000, 128) (G = 7), K2 and K4 also at split_rows 128, 384 and
+   1,024 (per = 1 and > 1, dead splits at both ends with window 200, a
+   request with kv_len 0), and at full width;
 7. decode, full width — ``flash_decode`` (block_kv=512, window None and
    4,096), ``partial_chunks=4`` and ``flash_decode_paged`` (ps=256, a
    shuffled ``PagedKVPool``), each within its stated bound of a float64
@@ -223,7 +225,27 @@ All data is drawn from ``--seed``.  Phases, in order; any failure exits nonzero:
    and exact step, tokens/s, peak memory, K1's and the domain
    preparation's ms inside an exact step, K1 against its bound and
    ``torch.sum``, one MoE layer's forward and backward at a microbatch's
-   shape under both dispatches.
+   shape under both dispatches;
+19. serve-vlm — qwen2-vl-7b's ``CONFIG`` whole: 28 layers at full width,
+   nothing cut (random weights from the seed, 15.23 GB; 28 heads on 4 KV
+   heads, hd 128, M-RoPE sections (16, 24, 24)), through phase 10's
+   ``Engine`` and traffic (8 slots x 1,024 on f32 caches, 32-token
+   prefill chunks, 8 greedy requests of prompts in [64, 768] and 32 new
+   tokens): every result complete and in order; K2 launched 28 times at
+   every decode step and K1 once (counts set to 0 just before the run,
+   read after every engine step and just after); K2 bitwise its plain
+   version on the engine's own cache and query in layer 14 (G = 7:
+   ``split_kernel<7, NT>``); three requests alone in fresh Engines give
+   bitwise their batched tokens; the last one's final decode logits
+   within ``SERVE_LOGIT_BOUND`` of ``forward(mode="prefill")``;
+   ``forward(embeds=embed_lookup(tokens))`` on the default (1, S, 3)
+   positions bitwise ``forward(tokens=)``; on one prompt's positions of
+   text, a 16 x 16 patch grid and text (S = 600), the full-width M-RoPE
+   rotation within ``VLM_ROPE_BOUND`` of a float64 rotation and the whole
+   forward on ``embeds`` finite; timings: a decode step against the
+   weights' bound, a prefill chunk, K2 per layer against its bound and
+   SDPA, generated tokens/s, the embeds forward, the parameter and cache
+   bytes, peak memory.
 
 Times are CUDA-event medians after a warm-up (plain versions: one
 host-clock run; K1 on the train path: the sum over a step's launches,
@@ -267,6 +289,9 @@ MEAN_REL = 2.0 ** -22
 HEADS, KV_HEADS, HEAD_DIM, WINDOW = 48, 8, 6144 // 48, 4096
 #: decode batch: requests x KV rows per request (f32 K+V: 4.29 GB)
 BATCH, KV_ROWS = 16, 32_768
+#: phase 6's second small shape (B, H, K, S, d): qwen2-vl-7b's group of 7
+#: query heads a KV head at its head width
+DECODE_G7 = (3, 14, 2, 1000, 128)
 #: INTAC: the wrapper's row limit x mixtral's d_model; magnitudes < 2^5
 #: and scale 2^24 keep |x| * scale < 2^29, inside intac_accum.py's contract
 INTAC_ROWS, INTAC_COLS, INTAC_SCALE = 1 << 15, 6144, 2.0 ** 24
@@ -524,6 +549,30 @@ MOE_K1_PER_STEP = MOE_LEAVES + 2 * MOE_LEAVES + 1
 #: few float32 ulps of its sums: max |capacity - dense| over the leaf's
 #: largest |dense| within MOE_DISPATCH_REL
 MOE_DISPATCH_TOKENS, MOE_DISPATCH_REL = 512, 1e-5
+#: the serve-vlm phase: qwen2-vl-7b's published CONFIG (src/repro_torch/
+#: configs/qwen2_vl_7b.py, arXiv:2409.12191) whole, nothing cut: 28
+#: layers, d_model 3,584, 28 heads on 4 KV heads (7 query heads a KV head,
+#: hd 128, M-RoPE sections (16, 24, 24)), d_ff 18,944, vocab 152,064,
+#: rope_theta 1e6; 7,615,283,200 bf16 parameters (15.23 GB).  Phase 10's
+#: engine and traffic (SERVE_*): 8 slots of 1,024 context on f32 caches
+#: (28 x 2 x 8 x 1,024 x 4 x 128 x 4 B = 0.94 GB), 32-token prefill
+#: chunks, 8 greedy requests with prompts in [64, 768] and 32 new tokens;
+#: the decode logits held to SERVE_LOGIT_BOUND over 28 layers
+VLM_ARCH = "qwen2-vl-7b"
+#: requests also run alone in a fresh Engine
+VLM_ALONE = (0, 3, 7)
+#: the distinct-stream prompt: 200 text tokens, a 16 x 16 patch grid, 144
+#: text tokens (S = 600, positions up to 359)
+VLM_TEXT, VLM_GRID = (200, 144), 16
+#: M-RoPE at full width against a float64 rotation, each element's
+#: |diff| over (|x1| + |x2|) (|angle| + 1) u, u = 2^-24: the frequency
+#: (powf, 4 ulps on the card, then a division) and the angle's product
+#: carry up to 10 u of the angle, cosf and sinf 2 ulps (4 u) absolute, the
+#: rotation's two products and sum 3 u of |x1| + |x2|: at most about 17.
+#: A slot turned by the wrong stream is off by up to 15 positions times
+#: its frequency (at least 1.5e-6 rad a position), about 385 u at the
+#: least; a wrong frequency or section by far more
+VLM_ROPE_BOUND = 32
 
 
 def fail(msg: str) -> int:
@@ -748,21 +797,20 @@ def decode_f64(q, k, v, kv_len, window, sm_scale, block, calls):
     return o64, bound
 
 
-def decode_phases(seed, dev, smi):
-    """Phases 6, 7 and the decode half of 9; returns the kernel entries
-    of K2, K3 and K4."""
+def small_decode_checks(gen, dev, b, h, kh, s_len, d):
+    """Phase 6 at one small shape (B, H, K, S, d): K2, K3 and K4 bitwise
+    their plain versions on a shuffled pool of 8 pages of 128 rows, kv_len
+    (0, 517, S), window None and 200; K2 and K4 also at split_rows 128,
+    384 and 1,024 (per = 1 and > 1, dead splits at both ends with the
+    window, the request with kv_len 0)."""
     import importlib
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import ops
     fd = importlib.import_module("repro_torch.kernels.flash_decode")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed + 2)
-
-    # 6. kernel against plain at a small size
-    b, h, kh, s_len, d = 3, 8, 2, 1000, 64
+    shape = f"({b}, {h}, {kh}, {s_len}, {d})"
+    pshape = f"({b}, {h}, {kh}, {8 * 128}, {d})"
     q = torch.randn((b, h, d), generator=gen, device=dev)
-    kv_len = torch.tensor([0, 517, 1000], device=dev)
+    kv_len = torch.tensor([0, 517, s_len], device=dev)
     kp, vp, tables, k, v = shuffled_pool(kv_len, 128, 8, kh, d, gen, dev)
     k, v = k[:, :s_len].contiguous(), v[:, :s_len].contiguous()
     sc = d ** -0.5
@@ -777,10 +825,11 @@ def decode_phases(seed, dev, smi):
             for name, kern, plain, kw in cases:
                 ok, err = same(kern(q, k, v, bias, sm_scale=sc, **kw),
                                plain(q, k, v, bias, sm_scale=sc, **kw))
-                print(f"check {name:7s} (3, 8, 2, 1000, 64) window="
+                print(f"check {name:7s} {shape} window="
                       f"{window} {kw}: max|kernel-plain|={err:g} "
                       f"{'bitwise' if ok else 'DIFFER'}", flush=True)
-                check(ok, f"{name} kernel differs from its plain version")
+                check(ok, f"{name} kernel differs from its plain version at "
+                          f"{shape}")
     # K2 and K4's splits: per = 1 (split_rows 128 at block 256 and 512,
     # ps 128) and > 1, dead splits at both ends (window 200), kv_len 0
     for window in (None, 200):
@@ -793,21 +842,43 @@ def decode_phases(seed, dev, smi):
                     split_rows=rows), fd.flash_decode_torch(
                     q, k, v, bias, sm_scale=sc, block_kv=block,
                     split_rows=rows))
-                print(f"check dense   (3, 8, 2, 1000, 64) window={window} "
+                print(f"check dense   {shape} window={window} "
                       f"block_kv={block} split_rows={rows} (per "
                       f"{fd.split_shape(-(-s_len // block), block, rows)[0]}"
                       f"): max|kernel-plain|={err:g} "
                       f"{'bitwise' if ok else 'DIFFER'}", flush=True)
-                check(ok, "dense kernel differs from its plain version")
+                check(ok, f"dense kernel differs from its plain version at "
+                          f"{shape}")
             ok, err = same(fd.flash_decode_paged_cuda(
                 q, kp, vp, pbias, tables, sm_scale=sc, split_rows=rows),
                 fd.flash_decode_paged_torch(q, kp, vp, pbias, tables,
                                             sm_scale=sc, split_rows=rows))
-            print(f"check paged   (3, 8, 2, 1024, 64) ps=128 window="
+            print(f"check paged   {pshape} ps=128 window="
                   f"{window} split_rows={rows}: max|kernel-plain|={err:g} "
                   f"{'bitwise' if ok else 'DIFFER'}", flush=True)
-            check(ok, "paged kernel differs from its plain version")
+            check(ok, f"paged kernel differs from its plain version at "
+                      f"{pshape}")
     del q, kp, vp, k, v
+
+
+def decode_phases(seed, dev, smi):
+    """Phases 6, 7 and the decode half of 9; returns the kernel entries
+    of K2, K3 and K4."""
+    import importlib
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 2)
+
+    # 6. kernel against plain at small sizes: G = 4, and G = 7 (qwen2-vl-
+    # 7b's group at its head width: one CUDA block of 7 query rows, a
+    # thread's last row past the group's end), from a generator of its own
+    small_decode_checks(gen, dev, 3, 8, 2, 1000, 64)
+    g7 = torch.Generator(device=dev)
+    g7.manual_seed(seed + 20)
+    small_decode_checks(g7, dev, *DECODE_G7)
 
     # full width: a shuffled pool at ps=256 and its assembled dense cache
     b, h, kh, s_len, d = BATCH, HEADS, KV_HEADS, KV_ROWS, HEAD_DIM
@@ -3941,6 +4012,339 @@ def train_moe_phase(seed, dev, smi):
     return entries
 
 
+def serve_vlm_phase(seed, dev, smi):
+    """Phase 19: qwen2-vl-7b whole, at full width, served through the
+    port's ``Engine`` on tokens (K2 at 7 query heads a KV head), its
+    embedding-input forward and M-RoPE on distinct position streams;
+    returns the kernel entries of K2 and K1 on this path."""
+    import gc
+    import importlib
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import jugglepac_segsum as K
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine, Request
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = get_config(VLM_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 61)
+    model = M.init_params(cfg, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_phase
+    weights_gb = M.param_bytes(model) / 1e9
+    host = torch.Generator()
+    host.manual_seed(seed + 62)
+    lens = torch.randint(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1,
+                         (SERVE_SLOTS,), generator=host).tolist()
+    requests = [Request(prompt=torch.randint(1, cfg.vocab, (n,),
+                                             generator=host).tolist(),
+                        max_new_tokens=SERVE_NEW) for n in lens]
+    group = cfg.n_heads // cfg.n_kv_heads
+    print(f"serve-vlm: {cfg.name} whole ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv: "
+          f"{group} query heads a KV head, K2's CUDA block of "
+          f"{fd.group_rows(group)} rows; hd {cfg.hdim}, M-RoPE sections "
+          f"{A.rope_sections(cfg)}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"rope_theta {cfg.rope_theta:g}, {cfg.dtype}), "
+          f"{sum(p.numel() for p in model.parameters())} parameters "
+          f"({weights_gb:.3f} GB) drawn in {init_s:.2f} s; {SERVE_SLOTS} "
+          f"slots x {SERVE_LEN} context, prefill chunks of {SERVE_CHUNK}; "
+          f"prompts {lens}, {SERVE_NEW} new tokens each, greedy",
+          flush=True)
+
+    def engine():
+        return Engine(cfg, model, max_len=SERVE_LEN, max_batch=SERVE_SLOTS,
+                      prefill_chunk=SERVE_CHUNK,
+                      logprob_policy="compensated", device=dev)
+
+    # taps (forward hooks): decode steps seen by layer 0; the middle
+    # layer's K2 inputs and output at one step; the last decode logits
+    layer = cfg.n_layers // 2
+    tap = {"steps": 0, "mid": 0, "logits": None}
+
+    def count_steps(mod, args, out):
+        tap["steps"] += 1
+
+    def capture(mod, args, out):
+        tap["mid"] += 1
+        if tap["mid"] == SERVE_TAP_STEP:
+            q, k, v, kv_len, sc = args
+            tap.update(q=q.clone(), k=k.clone(), v=v.clone(),
+                       kv_len=kv_len.clone(), sc=sc, out=out.clone())
+
+    def last_logits(mod, args, kwargs, out):
+        if kwargs.get("mode") == "decode" and args[0].shape[1] == 1:
+            tap["logits"] = out[0][:, 0].clone()
+
+    hooks = [model.blocks[0].core.decode_attn.register_forward_hook(
+                 count_steps),
+             model.blocks[layer].core.decode_attn.register_forward_hook(
+                 capture)]
+
+    # the main path: counts set to 0 just before, read after every engine
+    # step (K2 at 28 a decode step so far, K1 at 0 until _finalize_
+    # logprobs takes the mean) and just after
+    eng = engine()
+    stream, during = {}, []
+
+    def on_step(e, step):
+        during.append((tap["steps"], fd.LAUNCHES["dense"], K.LAUNCHES))
+        stream["vals"], stream["ids"] = list(e._lp_vals), list(e._lp_ids)
+
+    rids = [eng.submit(r) for r in requests]
+    for key in fd.LAUNCHES:
+        fd.LAUNCHES[key] = 0
+    K.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.run(on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2_launches, k1_launches = dict(fd.LAUNCHES), K.LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    for hk in hooks:
+        hk.remove()
+    steps = tap["steps"]
+    new = sum(len(r.tokens) - r.prompt_len for r in results)
+    per_step = all(k2 == st * cfg.n_layers and k1 == 0
+                   for st, k2, k1 in during)
+    print(f"main serve-vlm: {len(results)} results in order "
+          f"{[r.rid for r in results]}, {new} tokens, {steps} decode "
+          f"steps, {eng._clock} engine steps in {wall * 1e3:.1f} ms; K2 "
+          f"launches {k2_launches['dense']} (want {steps} x "
+          f"{cfg.n_layers}; after every engine step {cfg.n_layers} a decode"
+          f" step so far: {per_step}), K1 launches {k1_launches} (after "
+          f"each step: {sorted({k1 for _, _, k1 in during})}); peak memory "
+          f"{peak_gb:.2f} GiB; mean_logprob "
+          f"{[round(r.mean_logprob, 4) for r in results]}", flush=True)
+    check([r.rid for r in results] == rids
+          and all(len(r.tokens) - r.prompt_len == SERVE_NEW
+                  and r.tokens[:r.prompt_len] == q.prompt
+                  and all(0 <= t < cfg.vocab for t in r.tokens)
+                  and math.isfinite(r.mean_logprob)
+                  for r, q in zip(results, requests)),
+          "serve-vlm: results out of order, short, out of the vocabulary "
+          "or with a non-finite mean_logprob")
+    check(steps >= SERVE_NEW - 1 and per_step
+          and k2_launches == {"dense": steps * cfg.n_layers, "partial": 0,
+                              "paged": 0},
+          f"serve-vlm: K2 launches {k2_launches} for {steps} decode steps")
+    check(k1_launches == 1,
+          f"serve-vlm: the mean_logprob reduce did not run on K1 once "
+          f"(launches {k1_launches})")
+
+    # K2 against its plain version on the engine's own cache and query:
+    # split_kernel<7, NT>, qwen2-vl's group of 7 rows
+    q, k, v, kv_len, sc = (tap[x] for x in ("q", "k", "v", "kv_len", "sc"))
+    qf = q.float().contiguous()
+    bias = ops.length_bias(kv_len, k.shape[1], None, dev)
+    plain_ms, plain = host_ms(lambda: fd.flash_decode_torch(
+        qf, k, v, bias, sm_scale=sc, block_kv=512))
+    kern = fd.flash_decode_cuda(qf, k, v, bias, sm_scale=sc, block_kv=512)
+    ok, k2_err = same(kern, plain)
+    ok_engine = torch.equal(kern, tap["out"])
+    print(f"check K2 at G = {group} (layer {layer}, decode step "
+          f"{SERVE_TAP_STEP}: q {tuple(q.shape)} {q.dtype}, cache "
+          f"{tuple(k.shape)} {k.dtype}, kv_len {kv_len.tolist()}): "
+          f"max|kernel-plain|={k2_err:g} {'bitwise' if ok else 'DIFFER'}; "
+          f"the engine's own output {'bitwise' if ok_engine else 'DIFFER'}",
+          flush=True)
+    check(ok and ok_engine, "serve-vlm: K2 differs from its plain version "
+                            "on the engine's cache")
+
+    # timings on the engine's final state: every slot active at its
+    # length, each call writing the same row (the caches are not kept)
+    lengths = eng._caches[0]["core"].length[0].clone()
+    toks = torch.tensor([[r.tokens[-1]] for r in results], device=dev)
+    active = torch.ones(SERVE_SLOTS, dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        step_ms = cuda_ms(lambda: M.decode_step(
+            model, toks, eng._caches, lengths, active=active), REPS)
+        chunk = torch.tensor([requests[0].prompt[:SERVE_CHUNK]], device=dev)
+        chunk_ms = cuda_ms(lambda: eng._prefill_chunk(
+            0, chunk, 0, SERVE_CHUNK), REPS)
+    k2_ms = cuda_ms(lambda: fd.flash_decode_cuda(
+        qf, k, v, bias, sm_scale=sc, block_kv=512), REPS)
+    rows = int(kv_len.clamp(max=k.shape[1]).sum())
+    kh, d, h = k.shape[2], k.shape[3], q.shape[1]
+    k2_bytes = rows * (2 * kh * d * 4 + 4) + 2 * q.numel() * 4
+    k2_ops = rows * h * (4 * d + 1)
+    k2_bound = max(k2_bytes / HBM_BYTES_PER_S,
+                   k2_ops / FP32_OPS_PER_S) * 1e3
+    k4 = k.permute(0, 2, 1, 3).contiguous()
+    v4 = v.permute(0, 2, 1, 3).contiguous()
+    mask = bias[:, None, None, :]
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qf[:, :, None], k4, v4, attn_mask=mask, scale=sc,
+        enable_gqa=True), REPS)
+    del k4, v4, mask
+    cache_gb = M.cache_bytes(eng._caches) / 1e9
+    print(f"time serve-vlm: decode step at B={SERVE_SLOTS} {step_ms:.3f} "
+          f"ms (bound {weights_gb * 1e9 / HBM_BYTES_PER_S * 1e3:.3f} ms: "
+          f"the weights once over 3.35 TB/s; {SERVE_SLOTS * 1e3 / step_ms:.1f}"
+          f" tokens/s decoding) | {SERVE_CHUNK}-token prefill chunk "
+          f"{chunk_ms:.3f} ms | the run: {new} tokens in {wall * 1e3:.1f} ms "
+          f"({new / wall:.1f} generated tokens/s, prefill included) | K2 "
+          f"per layer per step {k2_ms:.4f} ms, bound {k2_bound:.4f} ms "
+          f"({k2_bytes / 1e6:.2f} MB: the f32 KV rows below each length), "
+          f"plain {plain_ms:.1f} ms, SDPA {sdpa_ms:.4f} ms | parameters "
+          f"{weights_gb:.3f} GB, caches {cache_gb:.3f} GB (f32 k/v), peak "
+          f"{peak_gb:.2f} GiB | {smi}", flush=True)
+    entries = [{
+        "name": "flash_decode_kernel<dense>/serve-vlm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:72",
+        "launches": k2_launches["dense"], "max_abs_err": k2_err,
+        "ms": k2_ms, "plain_ms": plain_ms, "bound_ms": k2_bound,
+        "bound_by": ("bytes" if k2_bytes / HBM_BYTES_PER_S
+                     >= k2_ops / FP32_OPS_PER_S else "operations"),
+        "library_ms": sdpa_ms}]
+    del q, k, v, qf, bias, kern, plain
+    tap.update(q=None, k=None, v=None, out=None)
+
+    # K1 at the mean_logprob shape: the run's (step x slot) stream
+    vals = torch.cat(stream["vals"])[:, None]
+    ids = torch.from_numpy(np.concatenate(stream["ids"])).to(dev)
+    nseg = len(requests)
+    safe = torch.where(ids >= 0, ids, nseg).long()
+    entry = k1_entry("serve-vlm", vals, ids, nseg, "compensated", smi,
+                     op="mean", library=lambda: torch.zeros(
+                         (nseg + 1, 1), device=dev).index_add_(0, safe, vals))
+    entries.append(dict(entry, launches=k1_launches))
+    del eng
+    torch.cuda.empty_cache()
+
+    # batch independence: requests alone in fresh Engines, greedy tokens
+    # bitwise; the last one's final decode logits kept
+    hook = model.register_forward_hook(last_logits, with_kwargs=True)
+    for i in VLM_ALONE:
+        alone = engine().generate([requests[i]])[0]
+        torch.cuda.empty_cache()
+        same_toks = alone.tokens == results[i].tokens
+        print(f"check request {i} (prompt {lens[i]}) alone vs in the "
+              f"batch: tokens {'bitwise' if same_toks else 'DIFFER'}",
+              flush=True)
+        check(same_toks, f"serve-vlm: request {i} depends on its batch")
+    hook.remove()
+    # its last decode step's logits (cache, K2) against one cache-free
+    # prefill forward over the same tokens
+    seq = torch.tensor([alone.tokens[:-1]], device=dev)
+    with torch.no_grad():
+        ref = M.forward(model, tokens=seq, mode="prefill")[0][0, -1]
+    got = tap["logits"][0]
+    rel = float((got - ref).abs().max() / ref.std())
+    agree = int(got[:cfg.vocab].argmax()) == int(ref[:cfg.vocab].argmax())
+    print(f"check request {VLM_ALONE[-1]}'s last decode step (position "
+          f"{seq.shape[1] - 1}) vs forward(mode='prefill') over its "
+          f"{seq.shape[1]} tokens: max|diff| / std(logits) = {rel:.5f} "
+          f"(bound {SERVE_LOGIT_BOUND}), std {float(ref.std()):.4f}, argmax "
+          f"{'agrees' if agree else 'differs'}", flush=True)
+    check(bool(torch.isfinite(got).all()) and rel <= SERVE_LOGIT_BOUND,
+          "serve-vlm: decode logits outside the bound of the cache-free "
+          "forward")
+    del ref, got, seq
+
+    # the embedding-input path at full width: embed_lookup(tokens) given as
+    # embeds on the default (B, S, 3) positions is bitwise the token forward
+    toks = torch.tensor([requests[0].prompt], device=dev)
+    with torch.no_grad():
+        on_toks = M.forward(model, tokens=toks)[0]
+        pos = M._default_positions(cfg, 1, toks.shape[1], 0, dev)
+        on_emb = M.forward(model, embeds=L.embed_lookup(model.embed, toks),
+                           positions=pos)[0]
+    ok = torch.equal(on_toks, on_emb)
+    print(f"check forward(embeds=embed_lookup(tokens), positions "
+          f"{tuple(pos.shape)}) vs forward(tokens=) over request 0's "
+          f"{toks.shape[1]} tokens: {'bitwise' if ok else 'DIFFER'}",
+          flush=True)
+    check(ok, "serve-vlm: the embedding-input forward differs from the "
+              "token forward")
+    del on_toks, on_emb
+
+    # M-RoPE on distinct streams: text, a patch grid, text
+    pos1 = vlm_positions(*VLM_TEXT, VLM_GRID, dev)             # (S, 3)
+    s_len = pos1.shape[0]
+    pos3 = pos1[None]
+    hd, secs = cfg.hdim, A.rope_sections(cfg)
+    x = torch.randn((1, s_len, cfg.n_heads, hd), generator=gen, device=dev)
+    got = L.apply_mrope(x, pos3, cfg.rope_theta, secs)
+    slot = torch.repeat_interleave(torch.arange(3, device=dev),
+                                   torch.tensor(secs, device=dev))
+    freqs = 1.0 / (cfg.rope_theta ** (torch.arange(
+        0, hd, 2, dtype=torch.float64, device=dev) / hd))
+    ang = (pos3[..., slot].double() * freqs)[..., None, :]  # (1, S, 1, hd/2)
+    x1, x2 = torch.chunk(x.double(), 2, dim=-1)
+    want = torch.cat([x1 * torch.cos(ang) - x2 * torch.sin(ang),
+                      x1 * torch.sin(ang) + x2 * torch.cos(ang)], dim=-1)
+    scale = torch.cat([(x1.abs() + x2.abs()) * (ang.abs() + 1)] * 2,
+                      dim=-1) * U
+    err = (got.double() - want).abs()
+    ratio = float((err / scale).max())
+    print(f"check M-RoPE at full width (B=1, S={s_len}: {VLM_TEXT[0]} text, "
+          f"a {VLM_GRID} x {VLM_GRID} patch grid, {VLM_TEXT[1]} text; "
+          f"positions up to {int(pos1.max())}; H={cfg.n_heads}, hd={hd}, "
+          f"sections {secs}) vs float64: max|diff|={float(err.max()):.4g} "
+          f"({float(err.max() / x.abs().max()):.3g} of max|x|), max |diff| "
+          f"/ ((|x1| + |x2|)(|angle| + 1) u) = {ratio:.3f} (bound "
+          f"{VLM_ROPE_BOUND})", flush=True)
+    check(ratio <= VLM_ROPE_BOUND, "serve-vlm: M-RoPE outside its bound "
+                                   "of the float64 rotation")
+    del x, got, want, scale, err, ang, x1, x2
+
+    # the whole forward on embeds with those positions: text tokens'
+    # embeddings around random patch embeddings at the table's scale
+    t_ids = torch.randint(1, cfg.vocab, (s_len,), generator=gen, device=dev)
+    emb = L.embed_lookup(model.embed, t_ids)
+    n0, g2 = VLM_TEXT[0], VLM_GRID * VLM_GRID
+    emb[n0:n0 + g2] = (0.02 * torch.randn((g2, cfg.d_model), generator=gen,
+                                          device=dev)).to(emb.dtype)
+    emb = emb[None]
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: M.forward(model, embeds=emb,
+                                           positions=pos3), 3)
+        logits = M.forward(model, embeds=emb, positions=pos3)[0]
+    finite = bool(torch.isfinite(logits).all())
+    print(f"check forward(embeds=, positions=) with the patch grid: logits "
+          f"{tuple(logits.shape)} {'finite' if finite else 'NOT FINITE'}, "
+          f"std {float(logits.std()):.4f}; {fwd_ms:.3f} ms | {smi}",
+          flush=True)
+    check(finite and logits.shape == (1, s_len, cfg.padded_vocab),
+          "serve-vlm: the embeds forward's logits are not finite")
+    del logits, emb, model, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serve-vlm: the phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return entries
+
+
+def vlm_positions(n_before, n_after, grid, dev):
+    """(S, 3) int32 M-RoPE positions of one prompt: ``n_before`` text
+    tokens (the three streams equal), a ``grid`` x ``grid`` patch grid at
+    t = n_before holding (t, t + row, t + col), then ``n_after`` text
+    tokens resuming at the largest position so far + 1."""
+    import torch
+    text = torch.arange(n_before, dtype=torch.int32, device=dev)
+    t = n_before
+    cell = torch.arange(grid * grid, dtype=torch.int32, device=dev)
+    patches = torch.stack([torch.full_like(cell, t), t + cell // grid,
+                           t + cell % grid], dim=1)
+    after = torch.arange(t + grid, t + grid + n_after, dtype=torch.int32,
+                         device=dev)
+    return torch.cat([text[:, None].expand(-1, 3), patches,
+                      after[:, None].expand(-1, 3)])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4252,6 +4656,9 @@ def main(argv=None) -> int:
           flush=True)
     kernels += train_moe_phase(args.seed, dev, smi)
     print(f"elapsed after phase 18: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    kernels += serve_vlm_phase(args.seed, dev, smi)
+    print(f"elapsed after phase 19: {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)

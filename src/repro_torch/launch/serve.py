@@ -8,7 +8,9 @@ Weights are random, drawn from ``--seed``.  Pass ``--arrival-gap G`` to
 drive the continuous-batching path instead of the all-at-once wrapper:
 requests arrive with mean-G-step Poisson gaps, admit mid-stream into freed
 decode slots, and results report per-request latency (submission to
-retirement, queue wait included).
+retirement, queue wait included).  Architectures whose inputs are
+embeddings (qwen2-vl-7b) or that need an encoder exit with the
+reference launcher's message: its demo serves token language models.
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    if cfg.embed_inputs or cfg.is_encdec:     # the reference's refusal
+        raise SystemExit(f"{args.arch}: serve demo targets token-LM archs")
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)

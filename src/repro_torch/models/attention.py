@@ -16,6 +16,10 @@ The PyTorch counterpart of the reference's ``repro.models.attention``
     chunked-prefill extend: the chunk attends causally to
     ``[0, length + qi]`` through ``_sdpa``.
 
+Queries and keys turn by RoPE, or, for an M-RoPE model (``cfg.mrope``,
+Qwen2-VL), by three position streams over the head's frequency slots
+(``mrope_sections``; positions (B, s, 3)).
+
 Caches (``cfg.window`` decides which, never the cache itself):
 
   * dense: k, v (B, T, K, hd), position p in row p; K2 reads
@@ -183,14 +187,16 @@ def _write_rows(buf, pos, vals, active):
 def gqa_apply(p: GQA, x, cfg: ModelConfig, *, positions, mode: str = "train",
               cache: Optional[KVCache] = None,
               active: Optional[torch.Tensor] = None, rope=None):
-    """x (B, s, d) -> (out (B, s, d), new_cache).  ``rope``: the
-    ``rope_tables`` of ``positions``, if the caller has them."""
+    """x (B, s, d) -> (out (B, s, d), new_cache).  ``positions`` (B, s),
+    or (B, s, 3) for an M-RoPE model; ``rope``: their ``rope_tables``, if
+    the caller has them."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hdim
     sm_scale = hd ** -0.5
 
     if rope is None:
-        rope = rope_tables(positions, hd, cfg.rope_theta)
+        rope = rope_tables(positions, hd, cfg.rope_theta,
+                           rope_sections(cfg))
     q = apply_rope(_split_heads(dense(p.wq, x), h, hd), positions,
                    tables=rope)
     k = apply_rope(_split_heads(dense(p.wk, x), kvh, hd), positions,
@@ -318,6 +324,22 @@ class MLA(nn.Module):
 def rope_dim(cfg: ModelConfig) -> int:
     """The width RoPE rotates: MLA's ``qk_rope_dim``, else the head."""
     return cfg.qk_rope_dim if cfg.attn_type == "mla" else cfg.hdim
+
+
+def mrope_sections(hd: int):
+    """M-RoPE's split of a head's hd/2 frequency slots into its
+    (temporal, height, width) sections: Qwen2-VL's (16, 24, 24) at hd =
+    128, scaled in proportion otherwise ((4, 6, 6) at 32)."""
+    half = hd // 2
+    s0 = max(1, round(half * 16 / 64))
+    s1 = (half - s0) // 2
+    return (s0, s1, half - s0 - s1)
+
+
+def rope_sections(cfg: ModelConfig):
+    """``rope_tables``' ``sections`` for ``cfg``: M-RoPE's split of the
+    rotated width for an M-RoPE model, None (plain RoPE) otherwise."""
+    return mrope_sections(rope_dim(cfg)) if cfg.mrope else None
 
 
 def mla_apply(p: MLA, x, cfg: ModelConfig, *, positions, mode: str = "train",

@@ -1,4 +1,5 @@
-"""Basic layers: dense projections, norms, MLPs, rotary embeddings.
+"""Basic layers: dense projections, norms, MLPs, rotary embeddings
+(RoPE and Qwen2-VL's M-RoPE).
 
 The PyTorch counterparts of the reference's ``repro.models.layers``, as
 functions of plain tensors.  Every projection accumulates in float32 and
@@ -178,12 +179,33 @@ def rope_freqs(hdim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / hdim))
 
 
-def rope_tables(positions: torch.Tensor, hdim: int, theta: float):
+def mrope_streams(sections, device=None) -> torch.Tensor:
+    """(hd/2,) the position stream (0, 1 or 2: temporal, height, width)
+    each frequency slot of M-RoPE takes, ``sections[i]`` slots of stream
+    i in order."""
+    return torch.repeat_interleave(
+        torch.arange(3, device=device),
+        torch.tensor(list(sections), device=device))
+
+
+def rope_tables(positions: torch.Tensor, hdim: int, theta: float,
+                sections=None):
     """(cos, sin), each (..., S, 1, hd/2) float32, of positions (..., S):
-    what ``apply_rope`` rotates by.  Every layer rotates by the same
+    what ``apply_rope`` rotates by.  With ``sections`` (Qwen2-VL's
+    M-RoPE) positions are (..., S, 3) and frequency slot i turns by its
+    stream's position (``mrope_streams``), gathered before the same
+    ``pos.float() * freqs`` product: where the three streams are equal
+    the tables are bitwise RoPE's.  Every layer rotates by the same
     tables, so a forward computes them once."""
     freqs = rope_freqs(hdim, theta, positions.device)        # (hd/2,)
-    ang = positions[..., None].to(torch.float32) * freqs     # (..., S, hd/2)
+    if sections is None:
+        pos = positions[..., None]                           # (..., S, 1)
+    else:
+        if sum(sections) != hdim // 2:
+            raise ValueError(f"M-RoPE sections {tuple(sections)} must sum "
+                             f"to hd/2 = {hdim // 2}")
+        pos = positions[..., mrope_streams(sections, positions.device)]
+    ang = pos.to(torch.float32) * freqs                      # (..., S, hd/2)
     ang = ang[..., None, :]                                  # (..., S, 1, hd/2)
     return torch.cos(ang), torch.sin(ang)
 
@@ -197,6 +219,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections=(16, 24, 24)) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE: x (B, S, H, hd), positions3 (B, S, 3)
+    the (temporal, height, width) ids; the hd/2 frequency slots split
+    into ``sections``, each rotated by its own stream."""
+    return apply_rope(x, positions3, tables=rope_tables(
+        positions3, x.shape[-1], theta, sections))
 
 
 def causal_mask(s_q: int, s_k: int, *, offset: int = 0,

@@ -24,9 +24,11 @@ that handles caches reads their fields from the cache's own type.
 float32, sequence-chunked as the reference does); its gradients come from
 torch autograd, ``remat`` recomputing each block in the backward.
 
-The port runs GQA attention (MHA included) with a dense or a ring KV cache,
-or MLA with a latent cache, Mamba blocks beside either, mLSTM and sLSTM
-blocks, and a SwiGLU, GELU, MoE or no MLP.  A configuration that needs more raises
+The port runs GQA attention (MHA included) with a dense or a ring KV
+cache, under RoPE or M-RoPE (Qwen2-VL's three position streams), or MLA
+with a latent cache, Mamba blocks beside either, mLSTM and sLSTM blocks,
+and a SwiGLU, GELU, MoE or no MLP, on tokens or on embeddings given in
+their place.  A configuration that needs more (an encoder-decoder) raises
 ``NotImplementedError`` naming what is missing (``unsupported``).
 """
 
@@ -49,14 +51,7 @@ from .layers import (SwiGLU, _param, embed_lookup, gelu_mlp, matmul_f32,
 
 def unsupported(cfg: ModelConfig) -> List[str]:
     """What ``cfg`` needs that the port's model lacks (empty: it runs)."""
-    missing = []
-    if cfg.is_encdec:
-        missing.append("enc-dec")
-    if cfg.embed_inputs:
-        missing.append("embed_inputs")
-    if cfg.mrope:
-        missing.append("mrope")
-    return missing
+    return ["enc-dec"] if cfg.is_encdec else []
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -64,10 +59,11 @@ def check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: the PyTorch port has no {', '.join(missing)} yet; "
-            "it runs GQA attention models on dense or ring caches, MLA "
-            "models on latent caches, Mamba hybrids and xLSTM stacks, "
-            "dense or with experts (e.g. stablelm-1.6b, mixtral-8x22b, "
-            "deepseek-v2-lite-16b, jamba-v0.1-52b, xlstm-125m)")
+            "it runs GQA attention models on dense or ring caches (M-RoPE "
+            "and embedding inputs included), MLA models on latent caches, "
+            "Mamba hybrids and xLSTM stacks, dense or with experts (e.g. "
+            "stablelm-1.6b, mixtral-8x22b, deepseek-v2-lite-16b, "
+            "jamba-v0.1-52b, xlstm-125m, qwen2-vl-7b)")
 
 
 # ---------------------------------------------------------------------------
@@ -137,9 +133,12 @@ class LM(nn.Module):
             self.lm_head = _param((cfg.d_model, cfg.padded_vocab), dtype,
                                   device)
 
-    def hidden(self, tokens, *, positions, mode, caches=None, active=None,
-               remat: bool = False, moe_impl: str = "capacity"):
-        x = embed_lookup(self.embed, tokens)
+    def hidden(self, tokens=None, *, embeds=None, positions, mode,
+               caches=None, active=None, remat: bool = False,
+               moe_impl: str = "capacity"):
+        """``embeds`` (B, S, D), given, take the place of the embedded
+        ``tokens`` as they are (a multimodal frontend's output)."""
+        x = embed_lookup(self.embed, tokens) if embeds is None else embeds
         x, new_caches, aux = _run_stack(self, x, positions=positions,
                                         mode=mode, caches=caches,
                                         active=active, remat=remat,
@@ -148,11 +147,13 @@ class LM(nn.Module):
                     policy=self.cfg.norm_reduce_policy)
         return x, new_caches, aux
 
-    def forward(self, tokens, *, positions, mode: str = "train",
-                caches=None, active=None, moe_impl: str = "capacity"):
-        x, new_caches, aux = self.hidden(tokens, positions=positions,
-                                         mode=mode, caches=caches,
-                                         active=active, moe_impl=moe_impl)
+    def forward(self, tokens=None, *, embeds=None, positions,
+                mode: str = "train", caches=None, active=None,
+                moe_impl: str = "capacity"):
+        x, new_caches, aux = self.hidden(tokens, embeds=embeds,
+                                         positions=positions, mode=mode,
+                                         caches=caches, active=active,
+                                         moe_impl=moe_impl)
         logits = matmul_f32(x, _lm_head(self))
         return logits, new_caches, aux
 
@@ -280,7 +281,8 @@ def _run_stack(model: LM, x, *, positions, mode, caches, active=None,
     reference."""
     cfg = model.cfg
     pattern = cfg.period
-    rope = rope_tables(positions, attn.rope_dim(cfg), cfg.rope_theta)
+    rope = rope_tables(positions, attn.rope_dim(cfg), cfg.rope_theta,
+                       attn.rope_sections(cfg))
     per_pos = [[] for _ in pattern]
     auxs = []
     for i in range(cfg.n_periods):
@@ -322,43 +324,58 @@ def _run_stack(model: LM, x, *, positions, mode, caches, active=None,
 # ---------------------------------------------------------------------------
 
 
-def _default_positions(bsz: int, s: int, offset=0, device=None):
-    """``offset`` is a scalar (shared position) or a (B,) tensor (serving
-    slots in a continuous batch sit at per-request positions)."""
+def _default_positions(cfg: ModelConfig, bsz: int, s: int, offset=0,
+                       device=None):
+    """(B, S) int32 positions from ``offset``, a scalar (shared position)
+    or a (B,) tensor (serving slots in a continuous batch sit at
+    per-request positions); (B, S, 3) for an M-RoPE model, the three
+    streams equal (text)."""
     off = torch.as_tensor(offset, dtype=torch.int32, device=device)
     pos = torch.arange(s, dtype=torch.int32, device=device)[None, :]
-    pos = pos + (off[:, None] if off.ndim == 1 else off)
-    return pos.expand(bsz, s)
+    pos = (pos + (off[:, None] if off.ndim == 1 else off)).expand(bsz, s)
+    return pos[..., None].expand(bsz, s, 3) if cfg.mrope else pos
+
+
+def _positions_for(model: LM, tokens, embeds, positions, offset):
+    """``positions`` if given, else the defaults for the input's (B, S)."""
+    if positions is not None:
+        return positions
+    x = tokens if embeds is None else embeds
+    return _default_positions(model.cfg, x.shape[0], x.shape[1], offset,
+                              x.device)
 
 
 def _lm_head(model: LM) -> torch.Tensor:
     return model.embed.T if model.cfg.tie_embeddings else model.lm_head
 
 
-def forward_hidden(model: LM, *, tokens, positions=None, mode: str = "train",
-                   caches=None, position_offset=0, active=None,
-                   remat: bool = False, moe_impl: str = "capacity"):
-    """Backbone only: (final-norm hidden states, caches, aux)."""
-    if positions is None:
-        positions = _default_positions(tokens.shape[0], tokens.shape[1],
-                                       position_offset, tokens.device)
-    return model.hidden(tokens, positions=positions, mode=mode,
-                        caches=caches, active=active, remat=remat,
+def forward_hidden(model: LM, *, tokens=None, embeds=None, positions=None,
+                   mode: str = "train", caches=None, position_offset=0,
+                   active=None, remat: bool = False,
+                   moe_impl: str = "capacity"):
+    """Backbone only: (final-norm hidden states, caches, aux).  As
+    ``forward``."""
+    positions = _positions_for(model, tokens, embeds, positions,
+                               position_offset)
+    return model.hidden(tokens, embeds=embeds, positions=positions,
+                        mode=mode, caches=caches, active=active, remat=remat,
                         moe_impl=moe_impl)
 
 
-def forward(model: LM, *, tokens, positions=None, mode: str = "train",
-            caches=None, position_offset=0, active=None,
+def forward(model: LM, *, tokens=None, embeds=None, positions=None,
+            mode: str = "train", caches=None, position_offset=0, active=None,
             moe_impl: str = "capacity"):
     """Returns (logits (B, S, padded_vocab) float32, new caches, aux).
-    ``aux`` is the MoE load-balance term of the reference (0 without
-    experts).  ``active`` (B,) bool, decode only: rows where it is False
-    keep their caches as they were."""
-    if positions is None:
-        positions = _default_positions(tokens.shape[0], tokens.shape[1],
-                                       position_offset, tokens.device)
-    return model(tokens, positions=positions, mode=mode, caches=caches,
-                 active=active, moe_impl=moe_impl)
+    The input is ``tokens`` (B, S) or ``embeds`` (B, S, D), used as they
+    are in place of the embedding; ``positions`` default to
+    ``position_offset`` onwards ((B, S, 3), the streams equal, for an
+    M-RoPE model).  ``aux`` is the MoE load-balance term of the reference
+    (0 without experts).  ``active`` (B,) bool, decode only: rows where
+    it is False keep their caches as they were."""
+    positions = _positions_for(model, tokens, embeds, positions,
+                               position_offset)
+    return model(tokens, embeds=embeds, positions=positions, mode=mode,
+                 caches=caches, active=active, moe_impl=moe_impl)
 
 
 def _chunk_nll(h, head, labels, mask):
@@ -375,32 +392,34 @@ def _chunk_nll(h, head, labels, mask):
 def loss_fn(model: LM, batch, *, moe_impl: str = "capacity",
             remat: bool = False, aux_weight: float = 0.01,
             logits_pspec=None):
-    """batch: ``tokens`` (B, S) [+ optional ``labels``, ``loss_mask``,
-    ``positions``] -> (loss, metrics {xent, aux, tokens}), as the
-    reference's ``loss_fn``: next-token cross-entropy in float32 plus
-    ``aux_weight * aux`` (0 for a model without experts).
+    """batch: ``tokens`` (B, S) or ``embeds`` (B, S, D) [+ optional
+    ``labels``, ``loss_mask``, ``positions``, (B, S, 3) for an M-RoPE
+    model] -> (loss, metrics {xent, aux, tokens}), as the reference's
+    ``loss_fn``: next-token cross-entropy in float32 plus ``aux_weight *
+    aux`` (0 for a model without experts).
 
     Without ``labels`` the labels are ``tokens[:, 1:]`` against the
-    hidden states of ``tokens[:, :-1]``.  The head and the cross-entropy
+    hidden states of ``tokens[:, :-1]`` (an ``embeds`` batch brings its
+    ``labels``, as the reference's training batch does).  The head and the cross-entropy
     run one sequence chunk of ``cfg.loss_chunk`` at a time (the whole
     sequence when it does not divide it), each chunk under a
     non-reentrant checkpoint so that only one chunk's (B, c, V) logits
     live; the chunk sums add in order onto 0 and the token count
     normalizes once at the end.  ``remat`` recomputes each block in the
     backward.  ``moe_impl`` picks the MoE dispatch; ``logits_pspec`` and
-    the embedding inputs of multimodal models raise."""
+    an encoder-decoder's ``enc_embeds`` raise."""
     cfg = model.cfg
     if logits_pspec is not None:
         raise NotImplementedError(
             "loss_fn(logits_pspec=): a sharded vocabulary needs a mesh — "
             "ROADMAP.md queue 1, item 5 (multi-device) brings it")
-    for key in ("embeds", "enc_embeds"):
-        if batch.get(key) is not None:
-            raise NotImplementedError(
-                f"loss_fn: batch[{key!r}] needs embed_inputs / enc-dec, "
-                "which the port's model lacks — ROADMAP.md queue 1, item 4")
-    tokens = batch["tokens"]
+    if batch.get("enc_embeds") is not None:
+        raise NotImplementedError(
+            "loss_fn: batch['enc_embeds'] needs enc-dec, which the port's "
+            "model lacks — ROADMAP.md queue 1, item 4")
+    tokens = batch.get("tokens")
     hidden, _, aux = forward_hidden(model, tokens=tokens,
+                                    embeds=batch.get("embeds"),
                                     positions=batch.get("positions"),
                                     mode="train", remat=remat,
                                     moe_impl=moe_impl)

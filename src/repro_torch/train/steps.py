@@ -21,8 +21,8 @@ trains through ``moe_impl``'s dispatch (``models.moe``), its router,
 expert and shared leaves stacked as the others, its ``aux`` loss in the
 metrics.  What this port lacks raises ``NotImplementedError`` naming the
 ``ROADMAP.md`` item that brings it: ``grad_reduce_mesh`` and
-``logits_pspec`` (queue 1, item 5, multi-device), other families (item
-4).
+``logits_pspec`` (queue 1, item 5, multi-device), encoder-decoder
+models (item 4).
 """
 
 from __future__ import annotations
@@ -80,7 +80,9 @@ def make_train_step(cfg: ModelConfig, *, lr_fn: Callable,
     moments in place.
 
     ``opt_state`` is ``init_state(model)``; ``batch`` holds ``tokens``
-    (B, S) (arrays or tensors), moved to ``device`` (None means CUDA).
+    (B, S), or ``embeds`` (B, S, D) with ``labels`` (B, S) (and, for an
+    M-RoPE model, ``positions`` (B, S, 3)), arrays or tensors, moved to
+    ``device`` (None means CUDA).
     ``num_microbatches`` = m > 1 splits the batch along dim 0; the m
     gradients accumulate through the JugglePAC binary-counter tree
     (``accumulate_microbatch_grads``: O(log m) live copies, a fixed
@@ -108,7 +110,10 @@ def make_train_step(cfg: ModelConfig, *, lr_fn: Callable,
         named = dict(model.named_parameters())
         loss, metrics = loss_fn(model, batch, moe_impl=moe_impl,
                                 remat=remat)
-        grads = torch.autograd.grad(loss, list(named.values()))
+        # an ``embeds`` batch leaves the embedding unused: its gradient
+        # is zeros, as the reference's
+        grads = torch.autograd.grad(loss, list(named.values()),
+                                    materialize_grads=True)
         grads = convert.to_reference(cfg, dict(zip(named, grads)))
         return grads, (loss.detach(),
                        {k: v.detach() for k, v in metrics.items()})
@@ -159,14 +164,16 @@ def make_eval_step(cfg: ModelConfig, *, moe_impl: str = "capacity",
 def make_prefill_step(cfg: ModelConfig, *, moe_impl: str = "capacity",
                       device=None):
     """-> ``prefill_step(model, batch) -> (last-position logits (B, 1, V),
-    caches)``."""
+    caches)``; ``batch`` holds ``tokens`` (B, S) or ``embeds`` (B, S, D),
+    and optional ``positions``."""
     check_supported(cfg)
     dev = resolve_device(device)
 
     @torch.no_grad()
     def prefill_step(model, batch):
         batch = _to_device(batch, dev)
-        logits, caches, _ = forward(model, tokens=batch["tokens"],
+        logits, caches, _ = forward(model, tokens=batch.get("tokens"),
+                                    embeds=batch.get("embeds"),
                                     positions=batch.get("positions"),
                                     mode="prefill", moe_impl=moe_impl)
         return logits[:, -1:], caches

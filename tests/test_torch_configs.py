@@ -1,10 +1,11 @@
 """The port's configuration copies and model support against the
 reference, on the CPU: every architecture's CONFIG and SMOKE equal the
-reference's, the GQA ones (dense or with experts, dense or ring caches),
-the MLA one, the Mamba hybrid and the xLSTM stack build, the rest raise
-naming what the port lacks, and stablelm-1.6b's, deepseek-v2-lite-16b's,
-jamba-v0.1-52b's and xlstm-125m's full-width parameter shapes match the
-reference's ``init_params`` (both abstract: nothing is allocated)."""
+reference's, the GQA ones (dense or with experts, dense or ring caches,
+M-RoPE), the MLA one, the Mamba hybrid and the xLSTM stack build, the
+encoder-decoder raises naming what the port lacks, and stablelm-1.6b's,
+deepseek-v2-lite-16b's, jamba-v0.1-52b's and xlstm-125m's full-width
+parameter shapes match the reference's ``init_params`` (both abstract:
+nothing is allocated)."""
 
 import dataclasses
 
@@ -26,7 +27,8 @@ ARCH = "stablelm-1.6b"
 @pytest.mark.parametrize("arch", RC.ARCH_IDS)
 def test_config_copy_and_model_support(arch):
     """CONFIG and SMOKE equal the reference's field for field; a GQA
-    model (mixtral-8x22b's experts included), an MLA one
+    model (mixtral-8x22b's experts and qwen2-vl-7b's M-RoPE and embedding
+    inputs included), an MLA one
     (deepseek-v2-lite-16b), a Mamba hybrid (jamba-v0.1-52b) or an xLSTM
     stack (xlstm-125m) builds on the meta device (nothing allocated) with
     the reference's parameter count plus its norms (a second one only in
@@ -101,18 +103,18 @@ def _xlstm_uncounted(cfg) -> int:
 
 
 def test_unsupported_names_each_missing_kind():
-    """Experts, ring caches, MLA, Mamba and xLSTM are ported:
-    mixtral-8x22b, deepseek-v2-lite-16b, jamba-v0.1-52b and xlstm-125m
-    run; the others raise naming what they lack."""
-    want = {"qwen2-vl-7b": {"embed_inputs", "mrope"},
-            "seamless-m4t-large-v2": {"enc-dec"}}
+    """Experts, ring caches, MLA, Mamba, xLSTM, M-RoPE and embedding
+    inputs are ported: mixtral-8x22b, deepseek-v2-lite-16b,
+    jamba-v0.1-52b, xlstm-125m and qwen2-vl-7b run; the encoder-decoder
+    seamless-m4t-large-v2 raises naming what it lacks."""
+    want = {"seamless-m4t-large-v2": {"enc-dec"}}
     for arch, kinds in want.items():
         assert set(TM.unsupported(TC.get_config(arch))) >= kinds, arch
         with pytest.raises(NotImplementedError) as e:
             TM.check_supported(TC.get_config(arch))
         assert all(k in str(e.value) for k in kinds), arch
     for arch in (ARCH, "mixtral-8x22b", "deepseek-v2-lite-16b",
-                 "jamba-v0.1-52b", "xlstm-125m"):
+                 "jamba-v0.1-52b", "xlstm-125m", "qwen2-vl-7b"):
         assert TM.unsupported(TC.get_config(arch)) == []
 
 

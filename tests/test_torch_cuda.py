@@ -323,11 +323,14 @@ def _fd():
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(3, 8, 2, 1000, 64, 256),
                                    (2, 12, 2, 700, 128, 512),
-                                   (2, 4, 4, 300, 30, 16)],
-                         ids=["G4", "G6", "odd-d"])
+                                   (2, 4, 4, 300, 30, 16),
+                                   (3, 14, 2, 1000, 128, 256)],
+                         ids=["G4", "G6", "odd-d", "G7"])
 def test_cuda_flash_decode_bitwise_plain_version(shape, cuda):
     """K2 and K3 (chunks of 1 and 3 blocks) to the bit of their plain
-    versions, window and masked rows included."""
+    versions, window and masked rows included; G7 is qwen2-vl-7b's group
+    of 7 query heads a KV head at its head width (one group of 7 rows a
+    CUDA block, a thread's last row past the group's end)."""
     from repro_torch.kernels import ops
     fd = _fd()
     b, h, kh, s, d, block = shape

@@ -323,7 +323,7 @@ def test_knobs_the_port_lacks_raise(smoke):
     model = _model(tree)
     with pytest.raises(NotImplementedError, match="item 4"):
         TM.loss_fn(model, {"tokens": torch.zeros(1, 4, dtype=torch.int32),
-                           "embeds": torch.zeros(1, 4, 128)})
+                           "enc_embeds": torch.zeros(1, 4, 128)})
     with pytest.raises(NotImplementedError, match="item 4"):
         TS.make_decode_step(tcfg, device=CPU)(model, [[1]], None, 0,
                                               enc_out=object())

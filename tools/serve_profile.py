@@ -6,6 +6,7 @@
     python3 tools/serve_profile.py --arch jamba-v0.1-52b --layers 16
     python3 tools/serve_profile.py --arch xlstm-125m --max-len 2176 \
         --prefill-tokens 2048
+    python3 tools/serve_profile.py --arch qwen2-vl-7b
 
 Builds ``--arch`` at full width (stablelm-1.6b by default; bf16, random
 weights from ``--seed``), its depth cut to ``--layers`` (a multiple of
