@@ -27,9 +27,12 @@ served through the ``Engine``: mLSTM and sLSTM blocks on O(1) states.
 Then deepseek-v2-lite-16b at full width (4 of its 27 layers) trained
 through the port's train step: its experts under the capacity dispatch
 with an ordered backward, the microbatch mean and the clip's norm on K1.
-Last, qwen2-vl-7b whole served through the ``Engine`` (K2 at 7 query heads
+Then qwen2-vl-7b whole served through the ``Engine`` (K2 at 7 query heads
 a KV head), its embedding-input forward and its M-RoPE on a patch grid's
-positions.  All data is drawn from ``--seed``.  Phases, in order; any failure exits nonzero:
+positions.  Last, seamless-m4t-large-v2 whole, an encoder-decoder: its
+encoder over each request's memory, the decoder prefilled and decoded
+through the train module's step factories with cross-attention on K2.
+All data is drawn from ``--seed``.  Phases, in order; any failure exits nonzero:
 
 1. device — the card's name and power limit, as nvidia-smi prints them;
 2. build  — every CUDA source, one nvcc each, in parallel;
@@ -245,7 +248,28 @@ positions.  All data is drawn from ``--seed``.  Phases, in order; any failure ex
    forward on ``embeds`` finite; timings: a decode step against the
    weights' bound, a prefill chunk, K2 per layer against its bound and
    SDPA, generated tokens/s, the embeds forward, the parameter and cache
-   bytes, peak memory.
+   bytes, peak memory;
+20. serve-encdec — seamless-m4t-large-v2's ``CONFIG`` whole: 24 encoder
+   and 24 decoder layers at full width, nothing cut (random weights from
+   the seed, 3.264 GB; 16 heads on 16 KV heads, hd 64): 8 requests, each
+   with its own (4,096, 1,024) bf16 memory (``ENCDEC_*``), 32-token
+   prompts through ``make_prefill_step`` (which encodes ``enc_embeds``),
+   caches padded to 128 (``pad_caches_to``), 96 greedy steps through
+   ``make_decode_step(enc_out=encode(...))``: K2 launched 48 times at
+   every decode step, 24 on the self caches and 24 on the memory (counts
+   set to 0 just before the run, read after every step and just after);
+   K2 bitwise its plain version and the model's own output on one
+   cross-attention call (kv_len 4,096) and one self-attention call of
+   layer 12; requests 0, 3 and 7 alone (their row of an otherwise empty
+   batch) give bitwise their batched tokens over the first 32; the last
+   step's logits within ``SERVE_LOGIT_BOUND`` of a cache-free
+   ``forward(enc_out=)`` over prompt and generated tokens; two requests'
+   memories swapped move their logits and leave the other rows'
+   bitwise; timings: ``encode`` at (8, 4,096), the prefill step, a decode
+   step against its bound (the weights once over 3.35 TB/s, or the cross
+   projections' operations over 989 T/s in bf16, whichever is larger),
+   generated tokens/s, a step's 48 cross K/V projections, K2 at the cross
+   and the self shape against their bounds and SDPA, peak memory.
 
 Times are CUDA-event medians after a warm-up (plain versions: one
 host-clock run; K1 on the train path: the sum over a step's launches,
@@ -573,6 +597,32 @@ VLM_TEXT, VLM_GRID = (200, 144), 16
 #: its frequency (at least 1.5e-6 rad a position), about 385 u at the
 #: least; a wrong frequency or section by far more
 VLM_ROPE_BOUND = 32
+#: the serve-encdec phase: seamless-m4t-large-v2's published CONFIG
+#: (src/repro_torch/configs/seamless_m4t_large_v2.py, arXiv:2308.11596)
+#: whole, nothing cut: 24 encoder layers, 24 decoder layers each with a
+#: cross-attention, d_model 1,024, 16 heads on 16 KV heads (hd 64), d_ff
+#: 8,192, vocab 256,206; 1,632,233,472 bf16 parameters (3.264 GB).  B = 8
+#: requests, each with its own encoder memory: ``enc_embeds`` (8, 4,096,
+#: 1,024) bf16, N(0, 1), standing for the stub speech frontend's output at
+#: the reference's ENC_LEN_DECODE (src/repro/launch/specs.py:22);
+#: decoder prompts of 32 tokens prefilled in lock step through
+#: ``make_prefill_step``, caches padded to 128, 96 greedy steps through
+#: ``make_decode_step(enc_out=)``: K2 24 times a step on the self caches
+#: (kv_len 33-128) and 24 times on the memory (kv_len 4,096, 4 splits x
+#: 16 heads x 8 requests = 512 CUDA blocks a launch)
+ENCDEC_ARCH, ENCDEC_PARAMS = "seamless-m4t-large-v2", 1_632_233_472
+ENCDEC_BATCH, ENCDEC_MEMORY, ENCDEC_PROMPT = 8, 4096, 32
+ENCDEC_LEN, ENCDEC_NEW = 128, 96
+#: requests also decoded alone (their row of an otherwise empty batch:
+#: token-0 prompts and zero memories), held over their first 32 tokens
+ENCDEC_ALONE, ENCDEC_ALONE_TOKENS = (0, 3, 7), 32
+#: the memory-swap check: two requests' memories exchanged move their
+#: last logits by more than this share of the logits' std (a forward on
+#: the same inputs repeats bit for bit, so any change is the memory's)
+ENCDEC_SWAP_MIN = 1e-3
+#: the card's dense bf16 tensor-core peak (H100 SXM data sheet), for the
+#: decode step's bound by operations
+BF16_OPS_PER_S = 989e12
 
 
 def fail(msg: str) -> int:
@@ -4328,6 +4378,279 @@ def serve_vlm_phase(seed, dev, smi):
     return entries
 
 
+def serve_encdec_phase(seed, dev, smi):
+    """Phase 20: seamless-m4t-large-v2 whole, at full width: each request's
+    memory encoded, the decoder prefilled and decoded through the train
+    module's step factories, its self- and cross-attention on K2;
+    returns the kernel entries of K2 at the cross and the self shape."""
+    import gc
+    import importlib
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import dense
+    from repro_torch.train import make_decode_step, make_prefill_step
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = get_config(ENCDEC_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 71)
+    model = M.init_params(cfg, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_phase
+    n_params = sum(p.numel() for p in model.parameters())
+    weights_gb = M.param_bytes(model) / 1e9
+    b, t, s0 = ENCDEC_BATCH, ENCDEC_MEMORY, ENCDEC_PROMPT
+    enc_embeds = torch.randn((b, t, cfg.d_model), generator=gen,
+                             device=dev).to(torch.bfloat16)
+    prompts = torch.randint(1, cfg.vocab, (b, s0), generator=gen,
+                            device=dev)
+    print(f"serve-encdec: {cfg.name} whole ({cfg.encoder_layers} encoder "
+          f"and {cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, hd {cfg.hdim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}), {n_params} "
+          f"parameters ({weights_gb:.3f} GB) drawn in {init_s:.2f} s; "
+          f"{b} requests, memories {tuple(enc_embeds.shape)} bf16, prompts "
+          f"of {s0}, caches padded to {ENCDEC_LEN}, {ENCDEC_NEW} greedy "
+          f"steps", flush=True)
+    check(n_params == ENCDEC_PARAMS, f"serve-encdec: {n_params} "
+                                     f"parameters, want {ENCDEC_PARAMS}")
+    prefill = make_prefill_step(cfg, device=dev)
+    dstep = make_decode_step(cfg, device=dev)
+
+    def generate(prompts, enc_embeds, steps, on_step=None):
+        """Greedy decoding through the step factories: the prefill step
+        encodes ``enc_embeds`` itself, the decode steps take the memory
+        from ``encode``.  -> (tokens (B, 1 + steps), the last step's
+        logits (B, V), the memory)."""
+        with torch.no_grad():
+            enc_out = M.encode(model, enc_embeds)
+        logits, caches = prefill(model, {"tokens": prompts,
+                                         "enc_embeds": enc_embeds})
+        caches = M.pad_caches_to(cfg, caches, ENCDEC_LEN)
+        tok = logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+        out = [tok]
+        for i in range(steps):
+            logits, caches = dstep(model, tok, caches, s0 + i,
+                                   enc_out=enc_out)
+            tok = logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+            out.append(tok)
+            if on_step is not None:
+                on_step(i)
+        return torch.cat(out, 1), logits[:, -1], enc_out
+
+    # taps (forward hooks): every DecodeAttention call, self and cross;
+    # layer 12's K2 inputs and output at one step of each
+    layer = cfg.n_layers // 2
+    tap = {"self": 0, "cross": 0}
+
+    def counter(kind):
+        def hook(mod, args, out):
+            tap[kind] += 1
+        return hook
+
+    def capture(kind):
+        def hook(mod, args, out):
+            tap[kind + "_seen"] = tap.get(kind + "_seen", 0) + 1
+            if tap[kind + "_seen"] == SERVE_TAP_STEP:
+                q, k, v, kv_len, sc = args
+                tap[kind + "_args"] = (q.clone(), k.clone(), v.clone(),
+                                       kv_len.clone(), sc, out.clone())
+        return hook
+
+    hooks = []
+    for blk in model.blocks:
+        hooks.append(blk.core.decode_attn.register_forward_hook(
+            counter("self")))
+        hooks.append(blk.cross.decode_attn.register_forward_hook(
+            counter("cross")))
+    for kind, mod in (("self", model.blocks[layer].core.decode_attn),
+                      ("cross", model.blocks[layer].cross.decode_attn)):
+        hooks.append(mod.register_forward_hook(capture(kind)))
+
+    # the main path: counts set to 0 just before, read after every decode
+    # step (48 a step so far) and just after
+    per_step = 2 * cfg.n_layers
+    during = []
+    for key in fd.LAUNCHES:
+        fd.LAUNCHES[key] = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, last, enc_out = generate(
+        prompts, enc_embeds, ENCDEC_NEW,
+        on_step=lambda i: during.append(fd.LAUNCHES["dense"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2_launches = dict(fd.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    for hk in hooks:
+        hk.remove()
+    in_step = during == [per_step * (i + 1) for i in range(ENCDEC_NEW)]
+    new = toks.numel()
+    print(f"main serve-encdec: {b} requests, {new} tokens ({ENCDEC_NEW} "
+          f"decode steps after the prefill) in {wall * 1e3:.1f} ms; K2 "
+          f"launches {k2_launches['dense']} (want {ENCDEC_NEW} x "
+          f"{per_step}; {per_step} a step after every step: {in_step}; "
+          f"self {tap['self']}, cross {tap['cross']}); peak memory "
+          f"{peak_gb:.2f} GiB; request 0's first tokens "
+          f"{toks[0, :8].tolist()}", flush=True)
+    check(toks.shape == (b, ENCDEC_NEW + 1)
+          and bool(((toks >= 0) & (toks < cfg.vocab)).all())
+          and bool(torch.isfinite(last).all()),
+          "serve-encdec: tokens out of the vocabulary or logits not finite")
+    check(in_step and k2_launches == {"dense": ENCDEC_NEW * per_step,
+                                      "partial": 0, "paged": 0}
+          and tap["self"] == tap["cross"] == ENCDEC_NEW * cfg.n_layers,
+          f"serve-encdec: K2 launches {k2_launches} (self {tap['self']}, "
+          f"cross {tap['cross']}) for {ENCDEC_NEW} decode steps")
+
+    # K2 against its plain version on the model's own inputs, a cross and
+    # a self call of layer 12 (the plain runs timed), and beside SDPA; the
+    # prefill step's caches are bf16, widened by the wrapper as here
+    entries, k2 = [], {}
+    for kind in ("cross", "self"):
+        q, k, v, kv_len, sc, out = tap.pop(kind + "_args")
+        print(f"serve-encdec: K2's {kind} call as the model made it: k/v "
+              f"{k.dtype}", flush=True)
+        qf, k, v = (x.float().contiguous() for x in (q, k, v))
+        bias = ops.length_bias(kv_len, k.shape[1], None, dev)
+        plain_ms, plain = host_ms(lambda: fd.flash_decode_torch(
+            qf, k, v, bias, sm_scale=sc, block_kv=512))
+        kern = fd.flash_decode_cuda(qf, k, v, bias, sm_scale=sc,
+                                    block_kv=512)
+        ok, err = same(kern, plain)
+        ok_model = torch.equal(kern, out)
+        print(f"check K2 {kind}-attention (layer {layer}, decode step "
+              f"{SERVE_TAP_STEP}: q {tuple(q.shape)} {q.dtype}, k/v "
+              f"{tuple(k.shape)} {k.dtype}, kv_len {kv_len.tolist()}): "
+              f"max|kernel-plain|={err:g} {'bitwise' if ok else 'DIFFER'}; "
+              f"the model's own output "
+              f"{'bitwise' if ok_model else 'DIFFER'}", flush=True)
+        check(ok and ok_model, f"serve-encdec: K2 differs from its plain "
+                               f"version on the {kind}-attention call")
+        ms = cuda_ms(lambda: fd.flash_decode_cuda(
+            qf, k, v, bias, sm_scale=sc, block_kv=512), REPS)
+        rows = int(kv_len.clamp(max=k.shape[1]).sum())
+        kh, d, h = k.shape[2], k.shape[3], q.shape[1]
+        nbytes = rows * (2 * kh * d * 4 + 4) + 2 * q.numel() * 4
+        nops = rows * h * (4 * d + 1)
+        bound = max(nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S) * 1e3
+        k4 = k.permute(0, 2, 1, 3).contiguous()
+        v4 = v.permute(0, 2, 1, 3).contiguous()
+        mask = bias[:, None, None, :]
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qf[:, :, None], k4, v4, attn_mask=mask, scale=sc), REPS)
+        splits = -(-k.shape[1] // fd.SPLIT_ROWS)
+        k2[kind] = (ms, bound, nbytes, sdpa_ms, plain_ms, splits)
+        entries.append({
+            "name": f"flash_decode_kernel<dense>/serve-encdec {kind}",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+            "replaces": "src/repro/kernels/flash_decode.py:72",
+            "launches": tap[kind], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= nops / FP32_OPS_PER_S else "operations"),
+            "library_ms": sdpa_ms})
+        del q, k, v, qf, bias, kern, plain, out, k4, v4, mask
+    torch.cuda.empty_cache()
+
+    # batch independence: each request in its row of an otherwise empty
+    # batch (token-0 prompts, zero memories), greedy tokens bitwise
+    for i in ENCDEC_ALONE:
+        p1 = torch.zeros_like(prompts)
+        m1 = torch.zeros_like(enc_embeds)
+        p1[i], m1[i] = prompts[i], enc_embeds[i]
+        alone = generate(p1, m1, ENCDEC_ALONE_TOKENS - 1)[0][i]
+        ok = torch.equal(alone, toks[i, :ENCDEC_ALONE_TOKENS])
+        print(f"check request {i} alone vs in the batch: its first "
+              f"{ENCDEC_ALONE_TOKENS} tokens {'bitwise' if ok else 'DIFFER'}",
+              flush=True)
+        check(ok, f"serve-encdec: request {i} depends on its batch")
+        del p1, m1
+    torch.cuda.empty_cache()
+
+    # the last step's logits (caches, K2 on the memory) against a
+    # cache-free train-mode forward over prompt and generated tokens
+    seq = torch.cat([prompts, toks[:, :ENCDEC_NEW]], 1)
+    with torch.no_grad():
+        ref = M.forward(model, tokens=seq, enc_out=enc_out)[0][:, -1]
+        swap = torch.arange(b, device=dev)
+        swap[0], swap[1] = 1, 0
+        swapped = M.forward(model, tokens=seq,
+                            enc_out=enc_out[swap])[0][:, -1]
+    std = ref.std(-1)
+    rel = float(((last - ref).abs().amax(-1) / std).max())
+    moved = ((swapped - ref).abs().amax(-1) / std)[:2]
+    rest_same = torch.equal(swapped[2:], ref[2:])
+    print(f"check the last decode step (position {seq.shape[1] - 1}) vs "
+          f"forward(enc_out=) over the {seq.shape[1]} tokens: max|diff| / "
+          f"std(logits) = {rel:.5f} over the {b} rows (bound "
+          f"{SERVE_LOGIT_BOUND}), std {float(std.mean()):.4f}", flush=True)
+    print(f"check requests 0 and 1 with their memories swapped: their "
+          f"logits move {[round(float(x), 5) for x in moved]} std (at "
+          f"least {ENCDEC_SWAP_MIN}); rows 2-{b - 1} "
+          f"{'bitwise' if rest_same else 'DIFFER'}", flush=True)
+    check(rel <= SERVE_LOGIT_BOUND, "serve-encdec: decode logits outside "
+                                    "the bound of the cache-free forward")
+    check(bool((moved > ENCDEC_SWAP_MIN).all()) and rest_same,
+          "serve-encdec: swapping the memories did not move exactly their "
+          "requests' logits")
+    del ref, swapped, seq
+
+    # timings: encode, the prefill step, a decode step at the final
+    # caches (every row writing its last row, 127, again), the step's
+    # cross K/V projections
+    batch = {"tokens": prompts, "enc_embeds": enc_embeds}
+    with torch.no_grad():
+        enc_ms = cuda_ms(lambda: M.encode(model, enc_embeds), 3)
+        pre_ms = cuda_ms(lambda: prefill(model, batch), 3)
+        _, caches = prefill(model, batch)
+        caches = M.pad_caches_to(cfg, caches, ENCDEC_LEN)
+        caches = [{"core": c["core"]._replace(length=torch.full_like(
+            c["core"].length, ENCDEC_LEN - 1))} for c in caches]
+        tok = toks[:, -1:]
+        step_ms = cuda_ms(lambda: dstep(model, tok, caches, ENCDEC_LEN - 1,
+                                        enc_out=enc_out), REPS)
+        proj_ms = cuda_ms(lambda: [dense(w, enc_out) for blk in model.blocks
+                                   for w in (blk.cross.wk, blk.cross.wv)],
+                          REPS)
+    proj_ops = 2 * cfg.n_layers * 2 * b * t * cfg.d_model \
+        * cfg.n_kv_heads * cfg.hdim
+    bytes_bound = weights_gb * 1e9 / HBM_BYTES_PER_S * 1e3
+    ops_bound = proj_ops / BF16_OPS_PER_S * 1e3
+    (xms, xbound, xbytes, xsdpa, xplain, xsplits), \
+        (sms, sbound, sbytes, ssdpa, splain, _) = k2["cross"], k2["self"]
+    print(f"time serve-encdec: encode at ({b}, {t}) {enc_ms:.3f} ms | "
+          f"prefill step (encode included) {pre_ms:.3f} ms | decode step at "
+          f"B={b} {step_ms:.3f} ms, bound {max(bytes_bound, ops_bound):.3f} "
+          f"ms (the larger of the weights once, {bytes_bound:.3f} ms over "
+          f"3.35 TB/s, and the cross projections' {proj_ops:.3e} "
+          f"operations, {ops_bound:.3f} ms over 989 T/s in bf16; "
+          f"{b * 1e3 / step_ms:.1f} tokens/s decoding) | the run: {new} "
+          f"tokens in {wall * 1e3:.1f} ms ({new / wall:.1f} generated "
+          f"tokens/s, encode and prefill included) | a step's "
+          f"{2 * cfg.n_layers} cross K/V projections {proj_ms:.3f} ms | K2 "
+          f"cross (kv_len {t}, {xsplits} splits x {cfg.n_kv_heads} heads x "
+          f"{b}) {xms:.4f} ms, bound {xbound:.4f} ms ({xbytes / 1e6:.2f} "
+          f"MB), plain {xplain:.1f} ms, SDPA {xsdpa:.4f} ms | K2 self "
+          f"{sms:.4f} ms, bound {sbound:.4f} ms ({sbytes / 1e6:.2f} MB), "
+          f"plain {splain:.1f} ms, SDPA {ssdpa:.4f} ms | parameters "
+          f"{weights_gb:.3f} GB, peak {peak_gb:.2f} GiB | {smi}", flush=True)
+    del model, enc_embeds, enc_out, caches, toks, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serve-encdec: the phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return entries
+
+
 def vlm_positions(n_before, n_after, grid, dev):
     """(S, 3) int32 M-RoPE positions of one prompt: ``n_before`` text
     tokens (the three streams equal), a ``grid`` x ``grid`` patch grid at
@@ -4659,6 +4982,9 @@ def main(argv=None) -> int:
           flush=True)
     kernels += serve_vlm_phase(args.seed, dev, smi)
     print(f"elapsed after phase 19: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    kernels += serve_encdec_phase(args.seed, dev, smi)
+    print(f"elapsed after phase 20: {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)

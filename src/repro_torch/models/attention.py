@@ -1,12 +1,13 @@
 """Grouped-query attention (GQA) with a dense or a ring KV cache, and
 multi-head latent attention (MLA, DeepSeek-V2) with a latent cache.
 
-The PyTorch counterpart of the reference's ``repro.models.attention``
-(its cross-attention excepted).  Three modes share one set of weights:
+The PyTorch counterpart of the reference's ``repro.models.attention``.
+Three modes share one set of weights:
 
   * ``train`` / ``prefill``: full-sequence causal attention (``_sdpa``,
     or ``_sdpa_chunked`` over query blocks for long sequences), windowed
-    when ``cfg.window`` is set; prefill also returns the KV cache;
+    when ``cfg.window`` is set, or non-causal (``causal=False``, an
+    encoder's); prefill also returns the KV cache;
   * ``decode``: ``s`` new tokens per row against a cache, each row
     appending at its own ``length`` (continuous-batching slots sit at
     different positions); writes past a dense cache's end are dropped.
@@ -19,6 +20,17 @@ The PyTorch counterpart of the reference's ``repro.models.attention``
 Queries and keys turn by RoPE, or, for an M-RoPE model (``cfg.mrope``,
 Qwen2-VL), by three position streams over the head's frequency slots
 (``mrope_sections``; positions (B, s, 3)).
+
+Cross-attention (an encoder-decoder's decoder, ``cross=True``) takes its
+keys and values as given (``kv_override``: the encoder memory's
+projections, (B, T, K, hd)), turns nothing, masks nothing and returns no
+cache.  The reference computes it in train mode on every call; here a
+decode step with ``s == 1`` sends its one query a row through
+``DecodeAttention`` (K2 on a CUDA device) with ``kv_len`` the memory's
+length T on every row, the keys and values widened to contiguous
+float32 (exact for bf16), and ``s > 1`` runs the train-mode path.  K2
+folds the same function in its split order, so it agrees with the
+reference to a tolerance.
 
 Caches (``cfg.window`` decides which, never the cache itself):
 
@@ -53,8 +65,7 @@ against c_kv and k_rope, ``p @ c_kv``, then ``wuv`` (``LatentAttention``).
 Both are float32 einsums, as the reference's are: K2 serves GQA only (its
 keys would be r + rd = 576 wide, its values r wide).  Absorbed and
 unabsorbed are one function rounded differently, so they agree to a
-tolerance.  The port has no cross-attention: the model raises
-``NotImplementedError`` for configurations that need it.
+tolerance.
 """
 
 from __future__ import annotations
@@ -111,9 +122,12 @@ class GQA(nn.Module):
 
     def forward(self, x, *, positions, mode: str = "train",
                 cache: Optional[KVCache] = None,
-                active: Optional[torch.Tensor] = None, rope=None):
+                active: Optional[torch.Tensor] = None, rope=None,
+                kv_override=None, cross: bool = False, causal: bool = True):
         return gqa_apply(self, x, self.cfg, positions=positions, mode=mode,
-                         cache=cache, active=active, rope=rope)
+                         cache=cache, active=active, rope=rope,
+                         kv_override=kv_override, cross=cross,
+                         causal=causal)
 
 
 def _split_heads(x, n, hd):
@@ -137,14 +151,20 @@ def _sdpa(q, k, v, mask, sm_scale):
     return out.reshape(b, s, h, hd)
 
 
-def _sdpa_chunked(q, k, v, cfg: ModelConfig, sm_scale, *, qchunk: int):
-    """Causal attention one block of ``qchunk`` queries at a time, each
-    against the full K/V: scores are (B, H, qc, S), never (S, S)."""
-    s = q.shape[1]
+def _sdpa_chunked(q, k, v, cfg: ModelConfig, sm_scale, *, qchunk: int,
+                  causal: bool = True):
+    """Attention one block of ``qchunk`` queries at a time, each against
+    the full K/V (T rows): scores are (B, H, qc, T), never (S, T).
+    Causal (windowed where ``cfg.window`` is set), or masking nothing."""
+    s, t = q.shape[1], k.shape[1]
     outs = []
     for i in range(s // qchunk):
-        mask = causal_mask(qchunk, s, offset=i * qchunk, window=cfg.window,
-                           device=q.device)
+        if causal:
+            mask = causal_mask(qchunk, t, offset=i * qchunk,
+                               window=cfg.window, device=q.device)
+        else:
+            mask = torch.zeros((qchunk, t), dtype=torch.float32,
+                               device=q.device)
         outs.append(_sdpa(q[:, i * qchunk:(i + 1) * qchunk], k, v, mask,
                           sm_scale))
     return torch.cat(outs, dim=1)
@@ -186,32 +206,58 @@ def _write_rows(buf, pos, vals, active):
 
 def gqa_apply(p: GQA, x, cfg: ModelConfig, *, positions, mode: str = "train",
               cache: Optional[KVCache] = None,
-              active: Optional[torch.Tensor] = None, rope=None):
+              active: Optional[torch.Tensor] = None, rope=None,
+              kv_override=None, cross: bool = False, causal: bool = True):
     """x (B, s, d) -> (out (B, s, d), new_cache).  ``positions`` (B, s),
     or (B, s, 3) for an M-RoPE model; ``rope``: their ``rope_tables``, if
-    the caller has them."""
+    the caller has them.  ``kv_override`` (k, v), each (B, T, K, hd),
+    takes the place of x's keys and values; ``cross`` (with it: the
+    decoder's cross-attention) turns neither q nor k, masks nothing and
+    returns no cache (see the module docstring for its decode step);
+    ``causal=False`` (an encoder's self-attention) masks nothing."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hdim
     sm_scale = hd ** -0.5
 
-    if rope is None:
-        rope = rope_tables(positions, hd, cfg.rope_theta,
-                           rope_sections(cfg))
-    q = apply_rope(_split_heads(dense(p.wq, x), h, hd), positions,
-                   tables=rope)
-    k = apply_rope(_split_heads(dense(p.wk, x), kvh, hd), positions,
-                   tables=rope)
-    v = _split_heads(dense(p.wv, x), kvh, hd)
+    q = _split_heads(dense(p.wq, x), h, hd)
+    if kv_override is not None:
+        k, v = kv_override
+    else:
+        k = _split_heads(dense(p.wk, x), kvh, hd)
+        v = _split_heads(dense(p.wv, x), kvh, hd)
+    if not cross:
+        if rope is None:
+            rope = rope_tables(positions, hd, cfg.rope_theta,
+                               rope_sections(cfg))
+        q = apply_rope(q, positions, tables=rope)
+        if kv_override is None:
+            k = apply_rope(k, positions, tables=rope)
 
     new_cache = cache
-    if mode in ("train", "prefill"):
+    if cross and mode == "decode" and s == 1:
+        # one query a row against every row of the memory: K2
+        kv_len = torch.full((b,), k.shape[1], dtype=torch.int32,
+                            device=x.device)
+        out = p.decode_attn(q[:, 0], k.float().contiguous(),
+                            v.float().contiguous(), kv_len,
+                            sm_scale)[:, None]
+        new_cache = None
+    elif mode in ("train", "prefill") or cross:
         qchunk = cfg.attn_qchunk
+        masked = causal and not cross
         if s > qchunk and s % qchunk == 0:
-            out = _sdpa_chunked(q, k, v, cfg, sm_scale, qchunk=qchunk)
-        else:
+            out = _sdpa_chunked(q, k, v, cfg, sm_scale, causal=masked,
+                                qchunk=qchunk)
+        elif masked:
             out = _sdpa(q, k, v, causal_mask(s, s, window=cfg.window,
                                              device=x.device), sm_scale)
-        if mode == "prefill":
+        else:
+            out = _sdpa(q, k, v, torch.zeros(
+                (s, k.shape[1]), dtype=torch.float32, device=x.device),
+                sm_scale)
+        if cross:
+            new_cache = None
+        elif mode == "prefill":
             if cfg.window is not None:       # pack the last W into the ring
                 ring = ring_positions(s, cfg.window, x.device)
                 k, v = k[:, ring], v[:, ring]

@@ -4,8 +4,11 @@
 ``init_params`` returns, with its leaves as numpy arrays (any float dtype,
 bf16 included), and loads it into the port's ``LM``: ``tree["blocks"][j]``
 holds period position ``j``'s leaves stacked on a leading ``n_periods``
-axis, and row ``i`` of each becomes layer ``i * len(period) + j``.  Both
-packages then compute the same function, which is what the tests compare.
+axis, and row ``i`` of each becomes layer ``i * len(period) + j``; an
+encoder-decoder's ``tree["encoder"]`` holds ``blocks``, a dict of leaves
+stacked on a leading ``encoder_layers`` axis (row ``i``: encoder layer
+``i``), and ``final_norm``.  Both packages then compute the same
+function, which is what the tests compare.
 ``to_reference`` goes the other way, for tensors named as the model's
 parameters (the weights or their gradients), and ``stacked_leaves``
 holds a model's parameters in that layout for training; ``nest`` turns
@@ -26,6 +29,9 @@ from .. import resolve_device
 from .config import ModelConfig
 from .model import LM
 
+#: the reference paths whose leaves stack layers on a leading axis
+_STACKED = ("blocks/", "encoder/blocks/")
+
 
 def _leaves(tree, prefix=()):
     if isinstance(tree, dict):
@@ -40,8 +46,9 @@ def reference_leaves(cfg: ModelConfig) -> Tuple[Tuple[str, Tuple[str, ...]],
                                                 ...]:
     """The reference tree's leaves in ``jax.tree.leaves`` order: (its path,
     ``/``-joined, and the model's parameter names it stacks, in period
-    order; one name for a leaf outside ``blocks``).  Cached per
-    configuration (a train step asks for it once a microbatch)."""
+    order, or in layer order under ``encoder/blocks``; one name for a
+    leaf outside both).  Cached per configuration (a train step asks for
+    it once a microbatch)."""
     per = len(cfg.period)
     groups: Dict[tuple, List[Tuple[int, str]]] = {}
     for name, _ in LM(cfg, device="meta").named_parameters():
@@ -50,6 +57,9 @@ def reference_leaves(cfg: ModelConfig) -> Tuple[Tuple[str, Tuple[str, ...]],
             layer = int(parts[1])
             key = ("blocks", layer % per) + tuple(parts[2:])
             groups.setdefault(key, []).append((layer // per, name))
+        elif parts[:2] == ["encoder", "blocks"]:
+            key = ("encoder", "blocks") + tuple(parts[3:])
+            groups.setdefault(key, []).append((int(parts[2]), name))
         else:
             groups[tuple(parts)] = [(0, name)]
     return tuple(("/".join(map(str, key)),
@@ -61,12 +71,13 @@ def to_reference(cfg: ModelConfig, tensors: Mapping[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
     """Tensors named as the model's parameters -> {reference path: leaf},
     in the reference's leaf order; a ``blocks`` leaf is the period
-    position's tensors stacked on a leading ``n_periods`` axis (a
+    position's tensors stacked on a leading ``n_periods`` axis, an
+    ``encoder/blocks`` leaf the encoder layers' on ``encoder_layers`` (a
     copy)."""
     out = {}
     for path, names in reference_leaves(cfg):
         out[path] = (torch.stack([tensors[n] for n in names])
-                     if path.startswith("blocks/") else tensors[names[0]])
+                     if path.startswith(_STACKED) else tensors[names[0]])
     return out
 
 
@@ -85,7 +96,7 @@ def stacked_leaves(model: LM) -> Dict[str, torch.Tensor]:
     leaves, ptrs = {}, []
     with torch.no_grad():
         for path, names in reference_leaves(model.cfg):
-            if path.startswith("blocks/"):
+            if path.startswith(_STACKED):
                 leaf = torch.stack([named[n].detach() for n in names])
                 for i, n in enumerate(names):
                     named[n].data = leaf[i]
@@ -100,7 +111,8 @@ def stacked_leaves(model: LM) -> Dict[str, torch.Tensor]:
 def nest(leaves: Mapping[str, torch.Tensor]) -> dict:
     """{reference path: leaf} (``to_reference``'s or ``stacked_leaves``'s
     layout) -> the reference's nested tree holding the same tensors:
-    dicts, with ``blocks`` a list indexed by period position."""
+    dicts, with ``blocks`` a list indexed by period position (the
+    encoder's ``blocks`` stay a dict, as the reference's)."""
     tree: dict = {}
     for path, leaf in leaves.items():
         parts = path.split("/")
@@ -128,20 +140,28 @@ def params_from_numpy(cfg: ModelConfig, tree, *, device=None) -> LM:
             device=dev, dtype=dtypes.get(name, torch.float32))
 
     state = {}
-    for path, leaf in _leaves({k: v for k, v in tree.items()
-                               if k != "blocks"}):
+
+    def unstack(where, block, n, layer_of):
+        for path, leaf in _leaves(block):
+            arr = np.asarray(leaf, dtype=np.float32)
+            if arr.shape[0] != n:
+                raise ValueError(f"{where}/{'/'.join(path)}: leading axis "
+                                 f"{arr.shape[0]}, want {n}")
+            for i in range(n):
+                name = ".".join(layer_of(i) + path)
+                state[name] = tensor(name, arr[i])
+
+    rest = {k: v for k, v in tree.items() if k not in ("blocks", "encoder")}
+    if "encoder" in tree:
+        rest["encoder"] = {"final_norm": tree["encoder"]["final_norm"]}
+        unstack("encoder/blocks", tree["encoder"]["blocks"],
+                cfg.encoder_layers, lambda i: ("encoder", "blocks", str(i)))
+    for path, leaf in _leaves(rest):
         name = ".".join(path)
         state[name] = tensor(name, leaf)
     for j, block in enumerate(tree["blocks"]):
-        for path, leaf in _leaves(block):
-            arr = np.asarray(leaf, dtype=np.float32)
-            if arr.shape[0] != cfg.n_periods:
-                raise ValueError(f"blocks[{j}]/{'/'.join(path)}: leading "
-                                 f"axis {arr.shape[0]}, want n_periods="
-                                 f"{cfg.n_periods}")
-            for i in range(cfg.n_periods):
-                name = ".".join(("blocks", str(i * per + j)) + path)
-                state[name] = tensor(name, arr[i])
+        unstack(f"blocks[{j}]", block, cfg.n_periods,
+                lambda i, j=j: ("blocks", str(i * per + j)))
     model.load_state_dict(state, strict=True, assign=True)
     # serving's parameters take no gradient; the train step switches it on
     return model.requires_grad_(False)

@@ -24,12 +24,20 @@ that handles caches reads their fields from the cache's own type.
 float32, sequence-chunked as the reference does); its gradients come from
 torch autograd, ``remat`` recomputing each block in the backward.
 
+An encoder-decoder (``cfg.is_encdec``) also holds ``encoder``: its
+``cfg.encoder_layers`` non-causal attention + GELU blocks and a final
+rmsnorm (``encode``), and each decoder block a cross-attention (``cross``
+behind the rmsnorm ``norm_x``) that runs after the block's attention
+wherever the caller gives the encoder memory ``enc_out`` and is skipped
+where it does not, as the reference's.  Its keys and values are the
+memory's projections, recomputed on every call as the reference does.
+
 The port runs GQA attention (MHA included) with a dense or a ring KV
 cache, under RoPE or M-RoPE (Qwen2-VL's three position streams), or MLA
 with a latent cache, Mamba blocks beside either, mLSTM and sLSTM blocks,
-and a SwiGLU, GELU, MoE or no MLP, on tokens or on embeddings given in
-their place.  A configuration that needs more (an encoder-decoder) raises
-``NotImplementedError`` naming what is missing (``unsupported``).
+an encoder with cross-attention, and a SwiGLU, GELU, MoE or no MLP, on
+tokens or on embeddings given in their place: every configuration of the
+repository (``unsupported`` is empty for each).
 """
 
 from __future__ import annotations
@@ -45,13 +53,14 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import ssm
 from .config import BlockSpec, MambaCfg, ModelConfig, XLSTMCfg
-from .layers import (SwiGLU, _param, embed_lookup, gelu_mlp, matmul_f32,
-                     rmsnorm, rope_tables)
+from .layers import (SwiGLU, _param, dense, embed_lookup, gelu_mlp,
+                     matmul_f32, rmsnorm, rope_tables)
 
 
 def unsupported(cfg: ModelConfig) -> List[str]:
-    """What ``cfg`` needs that the port's model lacks (empty: it runs)."""
-    return ["enc-dec"] if cfg.is_encdec else []
+    """What ``cfg`` needs that the port's model lacks (empty: it runs).
+    Every configuration of the repository runs."""
+    return []
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -59,11 +68,10 @@ def check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: the PyTorch port has no {', '.join(missing)} yet; "
-            "it runs GQA attention models on dense or ring caches (M-RoPE "
-            "and embedding inputs included), MLA models on latent caches, "
-            "Mamba hybrids and xLSTM stacks, dense or with experts (e.g. "
-            "stablelm-1.6b, mixtral-8x22b, deepseek-v2-lite-16b, "
-            "jamba-v0.1-52b, xlstm-125m, qwen2-vl-7b)")
+            "it runs GQA attention models on dense or ring caches (M-RoPE, "
+            "embedding inputs and encoder-decoders included), MLA models on "
+            "latent caches, Mamba hybrids and xLSTM stacks, dense or with "
+            "experts")
 
 
 # ---------------------------------------------------------------------------
@@ -72,6 +80,8 @@ def check_supported(cfg: ModelConfig) -> None:
 
 #: a recurrent period position's core module, by ``BlockSpec.kind``
 _RECURRENT = {"mamba": ssm.Mamba, "mlstm": ssm.MLSTM, "slstm": ssm.SLSTM}
+#: an encoder's one period position (the reference's ``encode``)
+ENCODER_SPEC = BlockSpec("attn", "gelu")
 
 
 class GeluMLP(nn.Module):
@@ -86,10 +96,12 @@ class GeluMLP(nn.Module):
 
 class Block(nn.Module):
     """rmsnorm -> attention (or a Mamba, mLSTM or sLSTM block) -> residual,
-    then rmsnorm -> MLP -> residual (no MLP where ``spec.mlp`` is
-    "none")."""
+    then, with ``cross`` (an encoder-decoder's decoder) and an encoder
+    memory given, rmsnorm ``norm_x`` -> cross-attention -> residual, then
+    rmsnorm -> MLP -> residual (no MLP where ``spec.mlp`` is "none")."""
 
-    def __init__(self, spec: BlockSpec, cfg: ModelConfig, dtype, device):
+    def __init__(self, spec: BlockSpec, cfg: ModelConfig, dtype, device, *,
+                 cross: bool = False):
         super().__init__()
         self.cfg, self.spec = cfg, spec
         self.norm1 = _param((cfg.d_model,), dtype, device)
@@ -100,6 +112,9 @@ class Block(nn.Module):
         else:
             core = attn.GQA
         self.core = core(cfg, dtype, device)
+        if cross:
+            self.norm_x = _param((cfg.d_model,), dtype, device)
+            self.cross = attn.GQA(cfg, dtype, device)
         if spec.mlp == "moe":
             self.norm2 = _param((cfg.d_model,), dtype, device)
             self.mlp = moe_mod.MoE(cfg, dtype, device)
@@ -109,15 +124,30 @@ class Block(nn.Module):
             self.mlp = mlp(cfg.d_model, cfg.d_ff, dtype, device)
 
     def forward(self, x, *, positions, mode, cache=None, active=None,
-                rope=None, moe_impl: str = "capacity"):
+                rope=None, moe_impl: str = "capacity", enc_out=None,
+                is_causal: bool = True):
         return _apply_block(self, x, self.cfg, positions=positions,
                             mode=mode, cache=cache, active=active, rope=rope,
-                            moe_impl=moe_impl)
+                            moe_impl=moe_impl, enc_out=enc_out,
+                            is_causal=is_causal)
+
+
+class Encoder(nn.Module):
+    """An encoder-decoder's encoder, named as the reference's ``encoder``
+    subtree: ``cfg.encoder_layers`` blocks of ``ENCODER_SPEC`` (attention
+    + GELU MLP, no cross-attention) and ``final_norm``."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.blocks = nn.ModuleList(Block(ENCODER_SPEC, cfg, dtype, device)
+                                    for _ in range(cfg.encoder_layers))
+        self.final_norm = _param((cfg.d_model,), dtype, device)
 
 
 class LM(nn.Module):
-    """embed -> blocks -> final rmsnorm -> head.  ``forward`` returns
-    (logits (B, S, padded_vocab) float32, new caches, aux)."""
+    """embed -> blocks -> final rmsnorm -> head, and for an
+    encoder-decoder the ``encoder``.  ``forward`` returns (logits (B, S,
+    padded_vocab) float32, new caches, aux)."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
@@ -126,34 +156,39 @@ class LM(nn.Module):
         dtype = getattr(torch, cfg.dtype)
         self.embed = _param((cfg.padded_vocab, cfg.d_model), dtype, device)
         self.blocks = nn.ModuleList(
-            Block(cfg.period[layer % len(cfg.period)], cfg, dtype, device)
+            Block(cfg.period[layer % len(cfg.period)], cfg, dtype, device,
+                  cross=cfg.is_encdec)
             for layer in range(cfg.n_layers))
         self.final_norm = _param((cfg.d_model,), dtype, device)
         if not cfg.tie_embeddings:
             self.lm_head = _param((cfg.d_model, cfg.padded_vocab), dtype,
                                   device)
+        if cfg.is_encdec:
+            self.encoder = Encoder(cfg, dtype, device)
 
     def hidden(self, tokens=None, *, embeds=None, positions, mode,
                caches=None, active=None, remat: bool = False,
-               moe_impl: str = "capacity"):
+               moe_impl: str = "capacity", enc_out=None):
         """``embeds`` (B, S, D), given, take the place of the embedded
-        ``tokens`` as they are (a multimodal frontend's output)."""
+        ``tokens`` as they are (a multimodal frontend's output);
+        ``enc_out`` (B, T, D) is the encoder memory the decoder's
+        cross-attention reads (none: no cross-attention)."""
         x = embed_lookup(self.embed, tokens) if embeds is None else embeds
-        x, new_caches, aux = _run_stack(self, x, positions=positions,
-                                        mode=mode, caches=caches,
-                                        active=active, remat=remat,
-                                        moe_impl=moe_impl)
+        x, new_caches, aux = _run_stack(
+            self.cfg, self.blocks, x, positions=positions, mode=mode,
+            caches=caches, active=active, remat=remat, moe_impl=moe_impl,
+            enc_out=enc_out)
         x = rmsnorm(self.final_norm, x, self.cfg.norm_eps,
                     policy=self.cfg.norm_reduce_policy)
         return x, new_caches, aux
 
     def forward(self, tokens=None, *, embeds=None, positions,
                 mode: str = "train", caches=None, active=None,
-                moe_impl: str = "capacity"):
+                moe_impl: str = "capacity", enc_out=None):
         x, new_caches, aux = self.hidden(tokens, embeds=embeds,
                                          positions=positions, mode=mode,
                                          caches=caches, active=active,
-                                         moe_impl=moe_impl)
+                                         moe_impl=moe_impl, enc_out=enc_out)
         logits = matmul_f32(x, _lm_head(self))
         return logits, new_caches, aux
 
@@ -167,10 +202,12 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
                 = None, device=None) -> LM:
     """A model of ``cfg`` with random weights drawn from ``generator``, as
     the reference draws them: the embedding N(0, 0.02^2), each projection
-    N(0, 1/d_in) (an MoE router too, kept float32), the experts' ``wi``
+    N(0, 1/d_in) (an MoE router too, kept float32; the cross-attention's
+    and the encoder's too), the experts' ``wi``
     and ``wg`` N(0, 1/d) and ``wo`` N(0, 1/(f * v)), a Mamba or mLSTM conv's
     ``conv_w`` N(0, 1/kernel^2) (``_init_scale``), norms ones (MLA's
-    latent ``c_norm`` and the mLSTM's ``out_norm`` too); drawn in
+    latent ``c_norm``, the mLSTM's ``out_norm``, ``norm_x`` and the
+    encoder's too); drawn in
     float32, then cast to the parameter's dtype.  The recurrent blocks'
     other leaves are set, not drawn (``_FILLED``, as ``mamba_init``,
     ``mlstm_init`` and ``slstm_init``): ``a_log`` log(1..d_state) on
@@ -245,14 +282,27 @@ def param_bytes(model: nn.Module) -> int:
 
 
 def _apply_block(bp: Block, x, cfg: ModelConfig, *, positions, mode, cache,
-                 active=None, rope=None, moe_impl: str = "capacity"):
+                 active=None, rope=None, moe_impl: str = "capacity",
+                 enc_out=None, is_causal: bool = True):
     """-> (x, new cache, aux): ``aux`` is the MoE layer's load-balancing
-    loss, 0 for another MLP."""
+    loss, 0 for another MLP.  ``is_causal=False`` (the encoder's GQA
+    blocks) masks nothing; the cross step runs where the block has
+    ``cross`` and ``enc_out`` is given."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(bp.norm1, x, cfg.norm_eps, policy=cfg.norm_reduce_policy)
+    extra = {} if is_causal else {"causal": False}
     out, new_cache = bp.core(h, positions=positions, mode=mode, cache=cache,
-                             active=active, rope=rope)
+                             active=active, rope=rope, **extra)
     x = x + out
+    if enc_out is not None and hasattr(bp, "cross"):
+        hx = rmsnorm(bp.norm_x, x, cfg.norm_eps,
+                     policy=cfg.norm_reduce_policy)
+        kv = tuple(attn._split_heads(dense(w, enc_out), cfg.n_kv_heads,
+                                     cfg.hdim)
+                   for w in (bp.cross.wk, bp.cross.wv))
+        out, _ = bp.cross(hx, positions=positions, mode=mode,
+                          kv_override=kv, cross=True)
+        x = x + out
     if bp.spec.mlp != "none":
         h2 = rmsnorm(bp.norm2, x, cfg.norm_eps,
                      policy=cfg.norm_reduce_policy)
@@ -265,9 +315,15 @@ def _apply_block(bp: Block, x, cfg: ModelConfig, *, positions, mode, cache,
     return x, new_cache, aux
 
 
-def _run_stack(model: LM, x, *, positions, mode, caches, active=None,
-               remat: bool = False, moe_impl: str = "capacity"):
-    """Every layer in order.  ``caches``: one ``{"core": cache}`` per
+def _run_stack(cfg: ModelConfig, blocks, x, *, positions, mode, caches,
+               active=None, remat: bool = False, moe_impl: str = "capacity",
+               enc_out=None, is_causal: bool = True, pattern=None):
+    """Every layer of ``blocks`` in order, block ``i * len(pattern) + j``
+    at period position ``j`` (``pattern`` defaults to ``cfg.period``; the
+    encoder's is ``(ENCODER_SPEC,)``), the rope tables from
+    ``positions``.  ``enc_out`` goes to every block (the decoder's cross
+    step), ``is_causal=False`` makes the attention non-causal.
+    ``caches``: one ``{"core": cache}`` per
     period position (a ``KVCache``, an ``MLACache``, or a recurrent
     block's state), leaves with a leading ``n_periods`` axis, or None.
     Decode writes each layer's rows in place through its view of them; a
@@ -279,27 +335,26 @@ def _run_stack(model: LM, x, *, positions, mode, caches, active=None,
     Returns (x, new caches in the same layout, aux): aux sums each
     period's layers in order from 0, then the periods, as the
     reference."""
-    cfg = model.cfg
-    pattern = cfg.period
+    pattern = pattern or cfg.period
     rope = rope_tables(positions, attn.rope_dim(cfg), cfg.rope_theta,
                        attn.rope_sections(cfg))
     per_pos = [[] for _ in pattern]
     auxs = []
-    for i in range(cfg.n_periods):
+    for i in range(len(blocks) // len(pattern)):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for j in range(len(pattern)):
             c = None
             if caches is not None:
                 full = caches[j]["core"]
                 c = type(full)(*(t[i] for t in full))
-            block = model.blocks[i * len(pattern) + j]
+            block = blocks[i * len(pattern) + j]
+            kw = dict(positions=positions, mode=mode, rope=rope,
+                      moe_impl=moe_impl, enc_out=enc_out,
+                      is_causal=is_causal)
             if remat and mode == "train" and torch.is_grad_enabled():
-                x, nc, a = checkpoint(block, x, positions=positions,
-                                      mode=mode, rope=rope,
-                                      moe_impl=moe_impl, use_reentrant=False)
+                x, nc, a = checkpoint(block, x, use_reentrant=False, **kw)
             else:
-                x, nc, a = block(x, positions=positions, mode=mode, cache=c,
-                                 active=active, rope=rope, moe_impl=moe_impl)
+                x, nc, a = block(x, cache=c, active=active, **kw)
             per_pos[j].append(nc)
             aux = aux + a
         auxs.append(aux)
@@ -349,33 +404,55 @@ def _lm_head(model: LM) -> torch.Tensor:
     return model.embed.T if model.cfg.tie_embeddings else model.lm_head
 
 
+def encode(model: LM, enc_embeds, *, remat: bool = False):
+    """The encoder stack of an encoder-decoder, as the reference's
+    ``encode``: ``enc_embeds`` (B, T, D) (the modality frontend's output;
+    a stub in the reference) at the default positions 0..T-1, every
+    encoder block non-causal in train mode, then the encoder's final
+    rmsnorm -> the memory (B, T, D) the decoder's cross-attention reads.
+    ``remat`` recomputes each block in the backward."""
+    cfg = model.cfg
+    b, t, _ = enc_embeds.shape
+    positions = _default_positions(cfg, b, t, 0, enc_embeds.device)
+    x, _, _ = _run_stack(cfg, model.encoder.blocks, enc_embeds,
+                         positions=positions, mode="train", caches=None,
+                         remat=remat, is_causal=False,
+                         pattern=(ENCODER_SPEC,))
+    return rmsnorm(model.encoder.final_norm, x, cfg.norm_eps,
+                   policy=cfg.norm_reduce_policy)
+
+
 def forward_hidden(model: LM, *, tokens=None, embeds=None, positions=None,
                    mode: str = "train", caches=None, position_offset=0,
                    active=None, remat: bool = False,
-                   moe_impl: str = "capacity"):
+                   moe_impl: str = "capacity", enc_out=None):
     """Backbone only: (final-norm hidden states, caches, aux).  As
     ``forward``."""
     positions = _positions_for(model, tokens, embeds, positions,
                                position_offset)
     return model.hidden(tokens, embeds=embeds, positions=positions,
                         mode=mode, caches=caches, active=active, remat=remat,
-                        moe_impl=moe_impl)
+                        moe_impl=moe_impl, enc_out=enc_out)
 
 
 def forward(model: LM, *, tokens=None, embeds=None, positions=None,
             mode: str = "train", caches=None, position_offset=0, active=None,
-            moe_impl: str = "capacity"):
+            moe_impl: str = "capacity", enc_out=None):
     """Returns (logits (B, S, padded_vocab) float32, new caches, aux).
     The input is ``tokens`` (B, S) or ``embeds`` (B, S, D), used as they
     are in place of the embedding; ``positions`` default to
     ``position_offset`` onwards ((B, S, 3), the streams equal, for an
     M-RoPE model).  ``aux`` is the MoE load-balance term of the reference
     (0 without experts).  ``active`` (B,) bool, decode only: rows where
-    it is False keep their caches as they were."""
+    it is False keep their caches as they were.  ``enc_out`` (B, T, D),
+    an encoder-decoder's memory (``encode``), is read by every decoder
+    block's cross-attention; without it the decoder runs alone, as the
+    reference's."""
     positions = _positions_for(model, tokens, embeds, positions,
                                position_offset)
     return model(tokens, embeds=embeds, positions=positions, mode=mode,
-                 caches=caches, active=active, moe_impl=moe_impl)
+                 caches=caches, active=active, moe_impl=moe_impl,
+                 enc_out=enc_out)
 
 
 def _chunk_nll(h, head, labels, mask):
@@ -394,7 +471,10 @@ def loss_fn(model: LM, batch, *, moe_impl: str = "capacity",
             logits_pspec=None):
     """batch: ``tokens`` (B, S) or ``embeds`` (B, S, D) [+ optional
     ``labels``, ``loss_mask``, ``positions``, (B, S, 3) for an M-RoPE
-    model] -> (loss, metrics {xent, aux, tokens}), as the reference's
+    model; ``enc_embeds`` (B, T, D) for an encoder-decoder, which the
+    decoder reads through ``encode``, and which a decoder-only model
+    ignores, as the reference does] -> (loss, metrics {xent, aux,
+    tokens}), as the reference's
     ``loss_fn``: next-token cross-entropy in float32 plus ``aux_weight *
     aux`` (0 for a model without experts).
 
@@ -406,23 +486,21 @@ def loss_fn(model: LM, batch, *, moe_impl: str = "capacity",
     non-reentrant checkpoint so that only one chunk's (B, c, V) logits
     live; the chunk sums add in order onto 0 and the token count
     normalizes once at the end.  ``remat`` recomputes each block in the
-    backward.  ``moe_impl`` picks the MoE dispatch; ``logits_pspec`` and
-    an encoder-decoder's ``enc_embeds`` raise."""
+    backward (the encoder's too).  ``moe_impl`` picks the MoE dispatch;
+    ``logits_pspec`` raises."""
     cfg = model.cfg
     if logits_pspec is not None:
         raise NotImplementedError(
             "loss_fn(logits_pspec=): a sharded vocabulary needs a mesh — "
             "ROADMAP.md queue 1, item 5 (multi-device) brings it")
-    if batch.get("enc_embeds") is not None:
-        raise NotImplementedError(
-            "loss_fn: batch['enc_embeds'] needs enc-dec, which the port's "
-            "model lacks — ROADMAP.md queue 1, item 4")
+    enc_out = (encode(model, batch["enc_embeds"], remat=remat)
+               if cfg.is_encdec else None)
     tokens = batch.get("tokens")
     hidden, _, aux = forward_hidden(model, tokens=tokens,
                                     embeds=batch.get("embeds"),
                                     positions=batch.get("positions"),
                                     mode="train", remat=remat,
-                                    moe_impl=moe_impl)
+                                    moe_impl=moe_impl, enc_out=enc_out)
     labels = batch.get("labels")
     if labels is None:
         labels = tokens[:, 1:]
@@ -537,19 +615,21 @@ def pad_caches_to(cfg: ModelConfig, caches, max_len: int):
 
 
 def decode_step(model: LM, token, caches, position, *, active=None,
-                moe_impl: str = "capacity"):
+                moe_impl: str = "capacity", enc_out=None):
     """One serving step: token (B, s) -> (logits (B, s, V), new caches).
 
     ``position`` is a scalar (lock-step batch) or a (B,) tensor of
     per-request positions; each row appends at its own cache length.
-    ``s > 1`` columns are a chunked-prefill extend.  ``active``: see
-    ``forward``."""
+    ``s > 1`` columns are a chunked-prefill extend.  ``active`` and
+    ``enc_out``: see ``forward`` (at ``s == 1`` the cross-attention runs
+    on K2)."""
     logits, new_caches, _ = forward(model, tokens=token, mode="decode",
                                     caches=caches, position_offset=position,
-                                    active=active, moe_impl=moe_impl)
+                                    active=active, moe_impl=moe_impl,
+                                    enc_out=enc_out)
     return logits, new_caches
 
 
-__all__ = ["LM", "Block", "SwiGLU", "GeluMLP", "init_params", "forward",
-           "forward_hidden", "loss_fn", "decode_step", "init_caches", "pad_caches_to",
+__all__ = ["LM", "Block", "Encoder", "SwiGLU", "GeluMLP", "init_params",
+           "encode", "forward", "forward_hidden", "loss_fn", "decode_step", "init_caches", "pad_caches_to",
            "unsupported", "check_supported", "param_bytes", "cache_bytes"]

@@ -19,10 +19,12 @@ model with both set, 58 for deepseek-v2-lite's 19 leaves); with both
 unset a step launches none of the port's kernels.  A model with experts
 trains through ``moe_impl``'s dispatch (``models.moe``), its router,
 expert and shared leaves stacked as the others, its ``aux`` loss in the
-metrics.  What this port lacks raises ``NotImplementedError`` naming the
-``ROADMAP.md`` item that brings it: ``grad_reduce_mesh`` and
-``logits_pspec`` (queue 1, item 5, multi-device), encoder-decoder
-models (item 4).
+metrics.  An encoder-decoder's batch brings ``enc_embeds``, which the
+loss, the eval and the prefill step encode (``models.encode``) for the
+decoder's cross-attention; its decode step takes the memory as
+``enc_out``.  What this port lacks raises ``NotImplementedError`` naming
+the ``ROADMAP.md`` item that brings it: ``grad_reduce_mesh`` and
+``logits_pspec`` (queue 1, item 5, multi-device).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch
 from .. import resolve_device
 from ..models import convert
 from ..models.config import ModelConfig
-from ..models.model import (check_supported, decode_step, forward,
+from ..models.model import (check_supported, decode_step, encode, forward,
                             loss_fn)
 from ..optim import adamw
 from ..reduce.accumulator import (accumulate_microbatch_grads,
@@ -81,8 +83,9 @@ def make_train_step(cfg: ModelConfig, *, lr_fn: Callable,
 
     ``opt_state`` is ``init_state(model)``; ``batch`` holds ``tokens``
     (B, S), or ``embeds`` (B, S, D) with ``labels`` (B, S) (and, for an
-    M-RoPE model, ``positions`` (B, S, 3)), arrays or tensors, moved to
-    ``device`` (None means CUDA).
+    M-RoPE model, ``positions`` (B, S, 3); for an encoder-decoder,
+    ``enc_embeds`` (B, T, D)), arrays or tensors, moved to ``device``
+    (None means CUDA).
     ``num_microbatches`` = m > 1 splits the batch along dim 0; the m
     gradients accumulate through the JugglePAC binary-counter tree
     (``accumulate_microbatch_grads``: O(log m) live copies, a fixed
@@ -165,37 +168,40 @@ def make_prefill_step(cfg: ModelConfig, *, moe_impl: str = "capacity",
                       device=None):
     """-> ``prefill_step(model, batch) -> (last-position logits (B, 1, V),
     caches)``; ``batch`` holds ``tokens`` (B, S) or ``embeds`` (B, S, D),
-    and optional ``positions``."""
+    and optional ``positions``; for an encoder-decoder ``enc_embeds`` (B,
+    T, D), encoded for the decoder's cross-attention, as the
+    reference's."""
     check_supported(cfg)
     dev = resolve_device(device)
 
     @torch.no_grad()
     def prefill_step(model, batch):
         batch = _to_device(batch, dev)
+        enc_out = (encode(model, batch["enc_embeds"]) if cfg.is_encdec
+                   else None)
         logits, caches, _ = forward(model, tokens=batch.get("tokens"),
                                     embeds=batch.get("embeds"),
                                     positions=batch.get("positions"),
-                                    mode="prefill", moe_impl=moe_impl)
+                                    mode="prefill", moe_impl=moe_impl,
+                                    enc_out=enc_out)
         return logits[:, -1:], caches
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig, *, moe_impl: str = "capacity",
                      device=None):
-    """-> ``dstep(model, token, caches, position) -> (logits, caches)``
-    (``models.decode_step``); ``enc_out`` raises (enc-dec models are
-    ROADMAP.md queue 1, item 4)."""
+    """-> ``dstep(model, token, caches, position, enc_out=None) ->
+    (logits, caches)`` (``models.decode_step``); ``enc_out`` (B, T, D) is
+    an encoder-decoder's memory (``models.encode``), which a decoder-only
+    model ignores, as the reference's."""
     check_supported(cfg)
     dev = resolve_device(device)
 
     @torch.no_grad()
     def dstep(model, token, caches, position, enc_out=None):
-        if enc_out is not None:
-            raise NotImplementedError(
-                "decode_step(enc_out=): enc-dec models are ROADMAP.md "
-                "queue 1, item 4")
         return decode_step(model, torch.as_tensor(token, device=dev),
-                           caches, position, moe_impl=moe_impl)
+                           caches, position, moe_impl=moe_impl,
+                           enc_out=enc_out)
     return dstep
 
 

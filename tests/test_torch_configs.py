@@ -1,11 +1,11 @@
 """The port's configuration copies and model support against the
 reference, on the CPU: every architecture's CONFIG and SMOKE equal the
-reference's, the GQA ones (dense or with experts, dense or ring caches,
-M-RoPE), the MLA one, the Mamba hybrid and the xLSTM stack build, the
-encoder-decoder raises naming what the port lacks, and stablelm-1.6b's,
-deepseek-v2-lite-16b's, jamba-v0.1-52b's and xlstm-125m's full-width
-parameter shapes match the reference's ``init_params`` (both abstract:
-nothing is allocated)."""
+reference's, every model builds (the GQA ones, dense or with experts,
+dense or ring caches, M-RoPE; the MLA one, the Mamba hybrid, the xLSTM
+stack and the encoder-decoder), and stablelm-1.6b's,
+deepseek-v2-lite-16b's, jamba-v0.1-52b's, xlstm-125m's and
+seamless-m4t-large-v2's full-width parameter shapes match the reference's
+``init_params`` (both abstract: nothing is allocated)."""
 
 import dataclasses
 
@@ -29,13 +29,15 @@ def test_config_copy_and_model_support(arch):
     """CONFIG and SMOKE equal the reference's field for field; a GQA
     model (mixtral-8x22b's experts and qwen2-vl-7b's M-RoPE and embedding
     inputs included), an MLA one
-    (deepseek-v2-lite-16b), a Mamba hybrid (jamba-v0.1-52b) or an xLSTM
-    stack (xlstm-125m) builds on the meta device (nothing allocated) with
-    the reference's parameter count plus its norms (a second one only in
-    a block with an MLP) and, for each recurrent layer, the leaves
-    ``param_counts`` leaves out (``_mamba_uncounted``,
-    ``_xlstm_uncounted``); any other configuration raises
-    NotImplementedError naming everything the port lacks."""
+    (deepseek-v2-lite-16b), a Mamba hybrid (jamba-v0.1-52b), an xLSTM
+    stack (xlstm-125m) or an encoder-decoder (seamless-m4t-large-v2)
+    builds on the meta device (nothing allocated) with the reference's
+    parameter count plus its norms (a second one only in a block with an
+    MLP) and, for each recurrent layer and the encoder-decoder, the
+    corrections of what ``param_counts`` miscounts (``_mamba_uncounted``,
+    ``_xlstm_uncounted``, ``_encdec_uncounted``); a configuration the
+    port lacks (none now) would raise NotImplementedError naming
+    everything missing."""
     assert TC.ARCH_IDS == RC.ARCH_IDS
     for get in ("get_config", "get_smoke_config"):
         ref = getattr(RC, get)(arch)
@@ -56,7 +58,7 @@ def test_config_copy_and_model_support(arch):
             norms += cfg.n_layers * cfg.kv_lora_rank
         assert sum(p.numel() for p in model.parameters()) \
             == cfg.param_counts()["total"] + norms + _mamba_uncounted(cfg) \
-            + _xlstm_uncounted(cfg)
+            + _xlstm_uncounted(cfg) + _encdec_uncounted(cfg)
         return
     with pytest.raises(NotImplementedError) as e:
         TM.init_params(cfg, device="meta")
@@ -103,19 +105,32 @@ def _xlstm_uncounted(cfg) -> int:
 
 
 def test_unsupported_names_each_missing_kind():
-    """Experts, ring caches, MLA, Mamba, xLSTM, M-RoPE and embedding
-    inputs are ported: mixtral-8x22b, deepseek-v2-lite-16b,
-    jamba-v0.1-52b, xlstm-125m and qwen2-vl-7b run; the encoder-decoder
-    seamless-m4t-large-v2 raises naming what it lacks."""
-    want = {"seamless-m4t-large-v2": {"enc-dec"}}
-    for arch, kinds in want.items():
-        assert set(TM.unsupported(TC.get_config(arch))) >= kinds, arch
-        with pytest.raises(NotImplementedError) as e:
-            TM.check_supported(TC.get_config(arch))
-        assert all(k in str(e.value) for k in kinds), arch
+    """Experts, ring caches, MLA, Mamba, xLSTM, M-RoPE, embedding inputs
+    and the encoder-decoder are ported: every configuration runs
+    (``unsupported`` empty, ``check_supported`` silent), mixtral-8x22b,
+    deepseek-v2-lite-16b, jamba-v0.1-52b, xlstm-125m, qwen2-vl-7b and
+    seamless-m4t-large-v2 among them."""
     for arch in (ARCH, "mixtral-8x22b", "deepseek-v2-lite-16b",
-                 "jamba-v0.1-52b", "xlstm-125m", "qwen2-vl-7b"):
+                 "jamba-v0.1-52b", "xlstm-125m", "qwen2-vl-7b",
+                 "seamless-m4t-large-v2"):
         assert TM.unsupported(TC.get_config(arch)) == []
+    for arch in RC.ARCH_IDS:
+        assert TM.unsupported(TC.get_config(arch)) == [], arch
+        TM.check_supported(TC.get_config(arch))
+        TM.check_supported(TC.get_smoke_config(arch))
+
+
+def _encdec_uncounted(cfg) -> int:
+    """What ``param_counts`` (a copy of the reference's) miscounts in an
+    encoder-decoder's tree: it counts each encoder layer's GELU MLP as 3 d
+    d_ff where the tree holds two (d, d_ff) matrices, and no norm of the
+    decoder's cross step (``norm_x``) or of the encoder (two a layer and
+    its final norm): - enc d d_ff + (n_layers + 2 enc + 1) d, -201,326,592
+    + 74,752 at seamless-m4t-large-v2's width."""
+    if not cfg.is_encdec:
+        return 0
+    d, enc = cfg.d_model, cfg.encoder_layers
+    return -enc * d * cfg.d_ff + (cfg.n_layers + 2 * enc + 1) * d
 
 
 def _meta_against_eval_shape(arch):
@@ -133,11 +148,17 @@ def _meta_against_eval_shape(arch):
     model = TM.init_params(tcfg, device="meta")
     # the port's parameters in the reference tree's layout: layer j of
     # period 0 stands for period position j, stacked under "blocks/j"
+    # (an encoder-decoder's encoder layer 0 for "encoder/blocks", stacked
+    # on encoder_layers)
     got = {}
     for name, p in model.named_parameters():
         parts = name.split(".")
-        if parts[0] != "blocks":
-            got[name] = tuple(p.shape)
+        if parts[:2] == ["encoder", "blocks"]:
+            if parts[2] == "0":
+                got["/".join(parts[:2] + parts[3:])] = \
+                    (tcfg.encoder_layers,) + tuple(p.shape)
+        elif parts[0] != "blocks":
+            got["/".join(parts)] = tuple(p.shape)
         elif int(parts[1]) < len(tcfg.period):      # period 0's layers
             got["/".join(parts)] = (tcfg.n_periods,) + tuple(p.shape)
     return ref, got, model
@@ -227,3 +248,26 @@ def test_xlstm_full_width_shapes_on_meta_match_eval_shape():
     assert sum(p.numel() for p in model.parameters()
                if p.dtype == torch.float32) == f32
     assert TM.param_bytes(model) == 2 * (n - f32) + 4 * f32 == 306_980_640
+
+
+def test_seamless_full_width_shapes_on_meta_match_eval_shape():
+    """seamless-m4t-large-v2's CONFIG (24 encoder layers, 24 decoder
+    layers with cross-attention, d_model 1,024, 16 heads on 16 KV heads,
+    d_ff 8,192, vocab 256,206): every parameter's shape against
+    ``jax.eval_shape`` of the reference's init_params, the encoder's
+    stacked on a leading 24 axis; 1,632,233,472 parameters on both sides
+    (3.264 GB in bf16), ``param_counts``'s 1,833,435,136 plus the
+    decoder's 49 norms and ``_encdec_uncounted``."""
+    ref, got, model = _meta_against_eval_shape("seamless-m4t-large-v2")
+    assert got == ref
+    assert ref["encoder/blocks/core/wq"] == (24, 1024, 1024)
+    assert ref["encoder/blocks/norm1"] == (24, 1024)
+    assert ref["encoder/final_norm"] == (1024,)
+    assert {"blocks/0/cross/wk", "blocks/0/norm_x"} <= set(got)
+    cfg = TC.get_config("seamless-m4t-large-v2")
+    assert cfg.param_counts()["total"] == 1_833_435_136
+    n = sum(p.numel() for p in model.parameters())
+    assert n == sum(int(np.prod(s)) for s in ref.values()) == 1_632_233_472
+    assert n == 1_833_435_136 + 49 * 1024 + _encdec_uncounted(cfg)
+    assert _encdec_uncounted(cfg) == -201_326_592 + 74_752
+    assert TM.param_bytes(model) == 2 * n                     # bf16

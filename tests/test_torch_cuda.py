@@ -873,3 +873,79 @@ def test_cuda_xlstm_forward_and_decode_match_their_cpu_run(cuda):
                 for a, b in zip(run(cpu_model, "cpu"),
                                 run(card_model, cuda))]
     assert max(errs) <= 2e-5, errs
+
+
+@pytest.mark.cuda
+def test_cuda_k2_at_the_cross_attention_shape_bitwise_plain(cuda):
+    """K2 at seamless-m4t-large-v2's cross-attention shape: 8 requests, 16
+    heads on 16 KV heads (G = 1), hd 64, every request reading all 4,096
+    rows of its memory (4 live splits of 1,024 rows): bitwise its plain
+    version, through the wrapper and the model's ``DecodeAttention``
+    (which launches it once)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import DecodeAttention
+    fd = _fd()
+    b, h, kh, t, d = 8, 16, 16, 4096, 64
+    q, k, v, _ = _decode_inputs(29, b, h, kh, t, d, cuda)
+    kv_len = torch.full((b,), t, dtype=torch.int32, device=cuda)
+    bias = ops.length_bias(kv_len, t, None, cuda)
+    want = fd.flash_decode_torch(q, k, v, bias, sm_scale=d ** -0.5,
+                                 block_kv=512)
+    before = fd.LAUNCHES["dense"]
+    got = DecodeAttention()(q, k, v, kv_len, d ** -0.5)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["dense"] == before + 1
+    assert torch.equal(want, got)
+    assert torch.equal(want, fd.flash_decode_cuda(q, k, v, bias,
+                                                  sm_scale=d ** -0.5,
+                                                  block_kv=512))
+
+
+@pytest.mark.cuda
+def test_cuda_seamless_prefill_and_decode_with_enc_out_match_the_cpu(cuda):
+    """seamless-m4t-large-v2's SMOKE model (2 encoder and 2 decoder
+    layers, float32) on the card against the same model on the CPU (a
+    copy moved): ``make_prefill_step`` on ``tokens`` and ``enc_embeds``,
+    then ``pad_caches_to`` and four ``make_decode_step(enc_out=encode)``
+    steps, whose cross-attention runs K2 on the card and its plain version
+    on the CPU.  The card sums its products, and K2 its splits, in other
+    orders, so each step's logits agree within 2e-5 of their largest
+    value (logits about N(0, 1) through four float32 layers), and the
+    card's decode steps launch K2 twice a layer."""
+    import copy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.models import model as M
+    from repro_torch.train import make_decode_step, make_prefill_step
+    fd = _fd()
+    cfg = get_smoke_config("seamless-m4t-large-v2")
+    cpu_model = init_params(cfg, generator=torch.Generator().manual_seed(5),
+                            device="cpu")
+    card_model = copy.deepcopy(cpu_model).to(cuda)
+    rng = np.random.RandomState(6)
+    toks = torch.from_numpy(rng.randint(1, cfg.vocab, (2, 14)))
+    mem = torch.from_numpy(rng.randn(2, 40, cfg.d_model).astype(np.float32))
+    launches = []
+
+    def run(model, dev):
+        prefill = make_prefill_step(cfg, device=dev)
+        dstep = make_decode_step(cfg, device=dev)
+        logits, caches = prefill(model, {"tokens": toks[:, :10],
+                                         "enc_embeds": mem})
+        out = [logits]
+        caches = M.pad_caches_to(cfg, caches, 16)
+        enc_out = M.encode(model, mem.to(dev))
+        before = fd.LAUNCHES["dense"]
+        for i in range(10, 14):
+            logits, caches = dstep(model, toks[:, i:i + 1], caches, i,
+                                   enc_out=enc_out)
+            out.append(logits)
+        launches.append(fd.LAUNCHES["dense"] - before)
+        return [o.float().cpu() for o in out]
+
+    with torch.no_grad():
+        want, got = run(cpu_model, "cpu"), run(card_model, cuda)
+    errs = [float((a - b).abs().max()) / float(a.abs().max())
+            for a, b in zip(want, got)]
+    assert max(errs) <= 2e-5, errs
+    assert launches[1] == 4 * 2 * cfg.n_layers

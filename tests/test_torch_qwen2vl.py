@@ -250,8 +250,8 @@ def test_loss_and_grads_on_an_embeds_batch_match_reference(setup):
     D), ``labels`` (B, S), ``positions`` (B, S, 3) with a patch grid) and
     every gradient leaf against ``jax.value_and_grad``: the loss within
     LOSS_ATOL, each leaf within GRAD_REL of its largest value, in the
-    reference's leaf order.  ``enc_embeds`` still raises, naming item
-    4."""
+    reference's leaf order.  ``enc_embeds``, which a decoder-only model
+    ignores as the reference does, leaves the loss bitwise the same."""
     rcfg, params, cfg, _, tree = setup
     rng = np.random.default_rng(13)
     pos = np.stack([patch_grid_positions(3, 3, 4),
@@ -282,8 +282,14 @@ def test_loss_and_grads_on_an_embeds_batch_match_reference(setup):
     for (path, ref), got in zip(flat, grads.values()):
         _rel_close(ref, got, GRAD_REL, f"grad {path}")
     assert not grads["embed"].any()         # the embeddings come as input
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TM.loss_fn(model, dict(batch, enc_embeds=torch.zeros(2, 16, 128)))
+    with torch.no_grad():
+        plain, _ = TM.loss_fn(model, {k: torch.from_numpy(v)
+                                      for k, v in batch.items()})
+        with_enc, _ = TM.loss_fn(model, dict(
+            {k: torch.from_numpy(v) for k, v in batch.items()},
+            enc_embeds=torch.ones(2, 16, 128)))
+    assert torch.equal(plain, with_enc)
+    assert torch.equal(plain, tl.detach())
 
 
 def test_train_step_on_an_embeds_batch_matches_reference(setup):

@@ -309,7 +309,11 @@ def test_eval_and_prefill_steps_within_tolerance_of_reference(smoke):
 def test_knobs_the_port_lacks_raise(smoke):
     """No fallback: every knob this slice does not port raises
     ``NotImplementedError`` naming its ROADMAP item, a model with experts
-    builds a step, and a train step without a device asks for CUDA."""
+    builds a step, and a train step without a device asks for CUDA.  A
+    decoder-only model ignores an encoder-decoder's inputs, as the
+    reference does: ``enc_embeds`` in the loss's batch leaves the loss
+    bitwise the same, and ``make_decode_step(...)(enc_out=)`` gives the
+    logits of the step without it."""
     _, _, tree = smoke
     tcfg = TC.get_smoke_config(ARCH)
     lr = TA.cosine_schedule(LR, 1, 5)
@@ -321,12 +325,17 @@ def test_knobs_the_port_lacks_raise(smoke):
     assert callable(TS.make_train_step(TC.get_smoke_config("mixtral-8x22b"),
                                        lr_fn=lr, device=CPU))
     model = _model(tree)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TM.loss_fn(model, {"tokens": torch.zeros(1, 4, dtype=torch.int32),
-                           "enc_embeds": torch.zeros(1, 4, 128)})
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TS.make_decode_step(tcfg, device=CPU)(model, [[1]], None, 0,
-                                              enc_out=object())
+    toks = torch.from_numpy(_tokens(seed=9, shape=(1, 4)))
+    plain, _ = TM.loss_fn(model, {"tokens": toks})
+    with_enc, _ = TM.loss_fn(model, {"tokens": toks,
+                                     "enc_embeds": torch.ones(1, 4, 128)})
+    assert torch.equal(plain, with_enc)
+    dstep = TS.make_decode_step(tcfg, device=CPU)
+    outs = []
+    for enc_out in (None, torch.ones(1, 4, 128)):
+        caches = TM.init_caches(tcfg, 1, 8, device=CPU)
+        outs.append(dstep(model, [[1]], caches, 0, enc_out=enc_out)[0])
+    assert torch.equal(outs[0], outs[1])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TS.make_train_step(tcfg, lr_fn=lr)
