@@ -29,9 +29,13 @@ through the port's train step: its experts under the capacity dispatch
 with an ordered backward, the microbatch mean and the clip's norm on K1.
 Then qwen2-vl-7b whole served through the ``Engine`` (K2 at 7 query heads
 a KV head), its embedding-input forward and its M-RoPE on a patch grid's
-positions.  Last, seamless-m4t-large-v2 whole, an encoder-decoder: its
+positions.  Then seamless-m4t-large-v2 whole, an encoder-decoder: its
 encoder over each request's memory, the decoder prefilled and decoded
 through the train module's step factories with cross-attention on K2.
+Last, data parallelism across ranks of a process group on the one card:
+groups of 2, 4 and 1 fresh interpreters (gloo) reduce phase 5's stream
+through the sharded executor and train xlstm-125m whole through the
+elastic step, resumed from 2 ranks onto 4 and onto 1 bit for bit.
 All data is drawn from ``--seed``.  Phases, in order; any failure exits nonzero:
 
 1. device — the card's name and power limit, as nvidia-smi prints them;
@@ -269,7 +273,36 @@ All data is drawn from ``--seed``.  Phases, in order; any failure exits nonzero:
    step against its bound (the weights once over 3.35 TB/s, or the cross
    projections' operations over 989 T/s in bf16, whichever is larger),
    generated tokens/s, a step's 48 cross K/V projections, K2 at the cross
-   and the self shape against their bounds and SDPA, peak memory.
+   and the self shape against their bounds and SDPA, peak memory;
+21. train-elastic — ``repro_torch.distributed`` on one card: each bytes
+   reckoning printed first, then groups of 2, 4 and 1 ranks
+   (``ELASTIC_WORLDS``; fresh interpreters started by
+   ``distributed.spawn.run_ranks``, gloo over a ``file://`` store, every
+   CUDA payload staged through the host and counted; each rank a
+   ``RANK_TIMEOUT``, any failure fails the script).  Check 1: phase 5's
+   stream, each rank its slice of the reference's split, every tier
+   through ``reduce(backend="shard_map", group=)``, K1 in each rank:
+   the integer tiers bitwise this process's ``reduce(backend="cuda")``
+   on the whole stream at W = 1, 2 and 4, the float tiers bitwise the
+   port's own rank-order merge of the ranks' carries and within their
+   float64 bound (phase 4's, plus W * 2^-24 of the |x| sums for the merge
+   adds), each rank's K1 launches printed.  Check 2: an (8, 768, 3,072)
+   stack split over the ranks: ``elastic_reduce_mean`` bitwise across W
+   for the integer tiers, ``collective_mean_tree`` of each rank's item
+   the same on every rank, compensated's residual returned.  Check 3:
+   xlstm-125m's ``CONFIG`` whole through ``make_elastic_train_step``
+   (exact2, one-row microbatches, 8 x ``ELASTIC_SEQ`` tokens a step): 4
+   steps on 2 ranks with a snapshot after step 2, steps 3 and 4 resumed
+   from it on 4 ranks and on 1: the parameters (a SHA-256 of every
+   leaf's bytes) and every loss bitwise the uninterrupted run's; K1
+   launches of each step counted (set to 0 just before it); ms a step,
+   bytes across ranks and staged, each rank's peak.  Check 4: the
+   launcher, ``--compress-bits 8 --microbatches 2`` on 2 ranks for
+   ``LAUNCH_STEPS`` steps: losses falling, rank 0 alone printing.  K1
+   bitwise its plain version at the elastic step's shape (a leaf's 4
+   microbatch rows, one label), timed beside ``index_add_``; K1 at the
+   embedding's shape timed.  One card's SMs serve every rank: the times
+   are not a scaling result.
 
 Times are CUDA-event medians after a warm-up (plain versions: one
 host-clock run; K1 on the train path: the sum over a step's launches,
@@ -623,6 +656,30 @@ ENCDEC_SWAP_MIN = 1e-3
 #: the card's dense bf16 tensor-core peak (H100 SXM data sheet), for the
 #: decode step's bound by operations
 BF16_OPS_PER_S = 989e12
+#: the train-elastic phase: groups of 1, 2 and 4 ranks on the one card,
+#: each a fresh interpreter (gloo: NCCL takes one rank a GPU), W = 2 first
+#: (its snapshot is what W = 4 and W = 1 resume from)
+ELASTIC_WORLDS = (2, 4, 1)
+#: xlstm-125m's published CONFIG (src/repro_torch/configs/xlstm_125m.py,
+#: arXiv:2405.04517) whole, nothing cut: 12 layers (3 periods of 3 mLSTM
+#: and 1 sLSTM), d_model 768, vocab 50,304; 153,370,440 parameters, 44
+#: leaves.  The elastic step (exact2, one-row microbatches): a global
+#: batch of 8 sequences of ELASTIC_SEQ tokens a step, 4 steps on 2 ranks
+#: with a snapshot after step 2, then steps 3 and 4 from it on 4 ranks and
+#: on 1.  A step's exact2 carries cross the ranks as 10 int32 words a
+#: parameter (6.13 GB a rank, staged through the host both ways), which
+#: gloo moves at about 0.6 GB/s: most of a step at W = 2 and 4 (PERF.md,
+#: PR 33).  The rows are 64 tokens to keep the model's share small
+ELASTIC_ARCH, ELASTIC_BATCH, ELASTIC_SEQ = "xlstm-125m", 8, 64
+ELASTIC_STEPS, ELASTIC_SAVE = 4, 2
+#: check 2's gradient-shaped stack: 8 items the shape of one mLSTM
+#: up-projection leaf (768 x 3,072), split over the ranks
+ELASTIC_ITEMS = (8, 768, 3072)
+#: check 4: the launcher's compressed step (8 bits, 2 microbatches a
+#: rank) on 2 ranks, LAUNCH_STEPS steps of 8 x LAUNCH_SEQ tokens
+LAUNCH_STEPS, LAUNCH_SEQ = 4, 64
+#: each rank's timeout, seconds
+RANK_TIMEOUT = 300
 
 
 def fail(msg: str) -> int:
@@ -1386,10 +1443,15 @@ def serve_phase(seed, dev, smi):
     del q, k, v, qf, bias, kern, plain
     tap.update(q=None, k=None, v=None, out=None)
 
-    # K1 at the mean_logprob shape: the run's (step x slot) stream
-    entry = k1_entry("serve", torch.cat(stream["vals"])[:, None],
-                     torch.from_numpy(np.concatenate(stream["ids"])).to(dev),
-                     len(requests), "compensated", smi, op="mean")
+    # K1 at the mean_logprob shape: the run's (step x slot) stream, beside
+    # one index_add_ of the same values
+    vals = torch.cat(stream["vals"])[:, None]
+    ids = torch.from_numpy(np.concatenate(stream["ids"])).to(dev)
+    nseg = len(requests)
+    safe = torch.where(ids >= 0, ids, nseg).long()
+    entry = k1_entry("serve", vals, ids, nseg, "compensated", smi,
+                     op="mean", library=lambda: torch.zeros(
+                         (nseg + 1, 1), device=dev).index_add_(0, safe, vals))
     entries.append(dict(entry, launches=k1_launches))
     del eng
     torch.cuda.empty_cache()
@@ -4651,6 +4713,403 @@ def serve_encdec_phase(seed, dev, smi):
     return entries
 
 
+def digest(t) -> str:
+    """SHA-256 of a tensor's bytes (any dtype), for bitwise comparisons
+    across processes."""
+    import hashlib
+    import torch
+    flat = t.detach().reshape(-1).contiguous().view(torch.uint8)
+    return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+
+def shard_bounds(n, world, rank, block):
+    """The reference's shard_map split of an N-row stream: N padded to a
+    multiple of world * block, each rank a contiguous equal share (its
+    real rows clipped at N)."""
+    per = (n + (-n) % (world * block)) // world
+    return min(rank * per, n), min((rank + 1) * per, n)
+
+
+def elastic_rank(group, *, seed, ckpt_dir, restore, steps, save_at,
+                 launcher):
+    """One rank of phase 21 (a fresh interpreter on the card): check 1,
+    the sharded ``reduce`` of its slice of phase 5's stream; check 2, the
+    elastic mean and ``collective_mean_tree`` of its share of a
+    gradient-shaped stack; check 3, xlstm-125m's elastic step (restored
+    from ``ckpt_dir`` first, or saving there after ``save_at`` steps);
+    check 4 (``launcher``), the launcher's compressed step.  Returns
+    digests, rank 0's results and the timings."""
+    import contextlib
+    import io
+    import torch
+    import repro_torch
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.collectives import make_elastic_train_step
+    from repro_torch.kernels import jugglepac_segsum as K
+    from repro_torch.launch import train as TL
+    from repro_torch.models import convert, init_params
+    from repro_torch.optim import adamw
+    from repro_torch.reduce import (collective as C, get_backend,
+                                    get_policy, mask_out_of_range,
+                                    plan_program)
+    from repro_torch.train import checkpoint_state, init_state
+    dev = torch.device("cuda")
+    r, w = comm.axis_index(group), comm.axis_size(group)
+    out = {"rank": r, "world": w}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        comm.barrier(group)
+        K.LAUNCHES = 0
+        comm.reset_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3, K.LAUNCHES, \
+            comm.read_stats()
+
+    # check 1: every tier through the sharded executor, K1 in each rank
+    n, d, s = N_ROWS, WIDTH, SEGMENTS
+    vals, ids = make_stream(n, d, s, seed, dev)
+    lo, hi = shard_bounds(n, w, r, 512)
+    sv, si = vals[lo:hi].contiguous(), ids[lo:hi].contiguous()
+    del vals, ids
+    out["reduce"] = {}
+    for tier in TIERS:
+        got, ms, launches, stats = timed(lambda: repro_torch.reduce(
+            sv, segment_ids=si, num_segments=s, policy=tier,
+            backend="shard_map", group=group))
+        rec = {"digest": digest(got), "ms": ms, "launches": launches,
+               "stats": stats, "out": got.cpu() if r == 0 else None}
+        pol = get_policy(tier)
+        if not pol.integer:
+            # the port's own rank-order merge of the per-slice carries
+            mids = mask_out_of_range(si, s)
+            dom = torch.where((mids >= 0)[:, None], sv,
+                              torch.zeros((), device=dev))
+            prog = plan_program(pol, num_segments=s, domain_width=d,
+                                block_size=512)
+            carry = get_backend("cuda").run(dom, mids, s, policy=pol,
+                                            block_size=512, program=prog)
+            parts = [comm.all_gather(c, group) for c in carry]
+            fold = tuple(p[0] for p in parts)
+            for k in range(1, w):
+                fold = pol.merge(fold, tuple(p[k] for p in parts))
+            rec["own_merge"] = bool(torch.equal(pol.finalize(fold, None),
+                                                got))
+            del dom, carry, parts, fold
+        out["reduce"][tier] = rec
+        del got
+    del sv, si
+    torch.cuda.empty_cache()
+
+    # check 2: a gradient-shaped stack of items, split over the ranks
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 210)
+    items = torch.randn(ELASTIC_ITEMS, generator=g, device=dev) * 1e-3
+    m = ELASTIC_ITEMS[0] // w
+    mine = items[r * m:(r + 1) * m]
+    out["elastic"], out["tree"] = {}, {}
+    for tier in TIERS:
+        got, ms, launches, stats = timed(lambda: C.elastic_reduce_mean(
+            mine, group, policy=tier))
+        out["elastic"][tier] = {"digest": digest(got), "ms": ms,
+                                "launches": launches, "stats": stats}
+        grads = {"w": items[r], "b": items[r, 0]}
+        res = ({k: torch.zeros_like(v) for k, v in grads.items()}
+               if tier == "compensated" else None)
+        means, new_res = C.collective_mean_tree(grads, res, group,
+                                                policy=tier)
+        out["tree"][tier] = {
+            "digest": digest(torch.cat([v.reshape(-1)
+                                        for v in means.values()])),
+            "residual": None if new_res is None else float(max(
+                v.abs().max() for v in new_res.values()))}
+    del items, mine, grads, means, new_res
+    torch.cuda.empty_cache()
+
+    # check 3: xlstm-125m whole through the elastic step
+    cfg = get_config(ELASTIC_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 21)
+    model = init_params(cfg, generator=gen, device=dev)
+    opt = init_state(model)
+    start = 0
+    if restore:
+        _, manifest, _ = ckpt.restore_latest_valid(
+            ckpt_dir, checkpoint_state(model, opt), inplace=True)
+        start = manifest["extra"]["next_step"]
+    step_fn = make_elastic_train_step(cfg, group,
+                                      lr_fn=adamw.cosine_schedule(1e-3, 2, 20),
+                                      microbatch_size=1)
+    torch.cuda.reset_peak_memory_stats()
+    train = {"start": start, "losses": [], "ms": [], "launches": [],
+             "stats": []}
+    for step in range(start, start + steps):
+        bg = torch.Generator(device=dev)
+        bg.manual_seed(seed * 1000 + 100 + step)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (ELASTIC_BATCH,
+                                                        ELASTIC_SEQ),
+                                         generator=bg, device=dev)}
+        (model, opt, met), ms, launches, stats = timed(
+            lambda: step_fn(model, opt, batch))
+        train["losses"].append(met["loss"].cpu())
+        train["ms"].append(ms)
+        train["launches"].append(launches)
+        train["stats"].append(stats)
+        if save_at == step + 1:
+            if r == 0:
+                ckpt.save(ckpt_dir, step + 1, checkpoint_state(model, opt),
+                          extra={"next_step": step + 1}, level=1)
+            comm.barrier(group)
+    train["peak"] = torch.cuda.max_memory_allocated()
+    train["digest"] = digest(torch.cat([
+        v.reshape(-1).view(torch.uint8) for v in
+        convert.stacked_leaves(model).values()]))
+    train["count"] = int(opt.count)
+    out["train"] = train
+    del model, opt, step_fn
+    torch.cuda.empty_cache()
+
+    # check 4: the launcher's data-parallel step, compressed
+    if launcher:
+        argv = ["--arch", ELASTIC_ARCH, "--compress-bits", "8",
+                "--microbatches", "2", "--dist-backend", "gloo",
+                "--steps", str(LAUNCH_STEPS), "--batch", str(ELASTIC_BATCH),
+                "--seq", str(LAUNCH_SEQ), "--lr", "1e-3", "--warmup", "1",
+                "--log-every", "1", "--seed", str(seed),
+                "--world-size", str(w)]
+        text = io.StringIO()
+        comm.reset_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            TL.main(argv)
+        out["launch"] = {"log": text.getvalue(),
+                         "s": time.perf_counter() - t0,
+                         "stats": comm.read_stats()}
+    return out
+
+
+def elastic_bytes(cfg, world):
+    """The bytes one rank of the elastic step holds, reckoned from the
+    leaves: parameters, float32 AdamW moments, its microbatches'
+    gradients (the parameters' dtype), and the largest leaf's exact2
+    domain (8 float32 planes a value) with its float32 copy."""
+    from repro_torch.models import convert, init_params
+    leaves = convert.stacked_leaves(init_params(cfg, device="meta"))
+    params = sum(v.numel() * v.element_size() for v in leaves.values())
+    numel = sum(v.numel() for v in leaves.values())
+    big = max(v.numel() for v in leaves.values())
+    m = ELASTIC_BATCH // world
+    return {"params": params, "moments": 8 * numel, "grads": m * params,
+            "domain": m * big * 4 * 9, "total": params + 8 * numel
+            + m * params + m * big * 4 * 9}
+
+
+def train_elastic_phase(seed, dev, smi):
+    """Phase 21: multi-process data parallelism on the card: groups of 2,
+    4 and 1 ranks (fresh interpreters, gloo), the sharded ``reduce``,
+    the elastic and tree means, xlstm-125m's elastic step resumed from 2
+    ranks onto 4 and onto 1, and the launcher's compressed step; returns
+    the kernel entry of K1 at the elastic step's shapes."""
+    import tempfile
+    import torch
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import spawn
+    from repro_torch.kernels import jugglepac_segsum as K
+    from repro_torch.models import convert, init_params
+    from repro_torch.reduce import get_policy
+    t_phase = time.perf_counter()
+    cfg = get_config(ELASTIC_ARCH)
+    for w in (1, 2, 4):
+        b = elastic_bytes(cfg, w)
+        print(f"train-elastic: reckoned bytes a rank at W={w}: parameters "
+              f"{b['params'] / 1e9:.3f} GB, moments "
+              f"{b['moments'] / 1e9:.3f} GB, {ELASTIC_BATCH // w} "
+              f"microbatch gradients {b['grads'] / 1e9:.3f} GB, the largest "
+              f"leaf's exact2 domain {b['domain'] / 1e9:.3f} GB: "
+              f"{b['total'] / 1e9:.2f} GB a rank, {w * b['total'] / 1e9:.2f}"
+              f" GB for the group, beside activations | card "
+              f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f}"
+              f" GB", flush=True)
+
+    # the one-process results check 1 is held to: K1 on the whole stream
+    n, d, s = N_ROWS, WIDTH, SEGMENTS
+    vals, ids = make_stream(n, d, s, seed, dev)
+    ref, absum, cnt = f64_reference(vals, ids, s)
+    bsafe = torch.where(ids >= 0, ids, torch.full_like(ids, s)).long()
+    blk = torch.arange(n, device=dev) // 512
+    pairs = torch.unique(blk * (s + 1) + bsafe)
+    blocks_per_seg = torch.bincount(pairs % (s + 1), minlength=s + 1)[:s] \
+        .to(torch.float64)
+    one, bound = {}, {}
+    for tier in TIERS:
+        pol = get_policy(tier)
+        one[tier] = repro_torch.reduce(vals, segment_ids=ids,
+                                       num_segments=s, policy=tier).cpu()
+        ctx = pol.prepare_ctx(vals[ids >= 0].abs().max(), n) \
+            if pol.needs_max_stat else None
+        bound[tier] = tier_bound(tier, ref, absum, cnt, blocks_per_seg, ctx,
+                                 512).cpu()
+    ref, absum = ref.cpu(), absum.cpu()
+    del vals, ids, cnt, bsafe, blk, pairs, blocks_per_seg
+    torch.cuda.empty_cache()
+
+    runs = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build",
+                                     prefix="elastic_smoke_") as tmp:
+        for w in ELASTIC_WORLDS:
+            t0 = time.perf_counter()
+            runs[w] = spawn.run_ranks(
+                "chip_smoke:elastic_rank", w, workdir=Path(tmp) / f"w{w}",
+                kwargs={"seed": seed, "ckpt_dir": str(Path(tmp) / "ck"),
+                        "restore": w != 2,
+                        "steps": ELASTIC_STEPS if w == 2
+                        else ELASTIC_STEPS - ELASTIC_SAVE,
+                        "save_at": ELASTIC_SAVE if w == 2 else None,
+                        "launcher": w == 2},
+                paths=[str(ROOT)], timeout=RANK_TIMEOUT)
+            print(f"train-elastic: the group of {w} rank(s) took "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # check 1: the sharded reduce
+    for tier in TIERS:
+        for w in (1, 2, 4):
+            outs = runs[w]
+            recs = [o["reduce"][tier] for o in outs]
+            digests = {rec["digest"] for rec in recs}
+            got = recs[0]["out"]
+            check(len(digests) == 1, f"train-elastic: {tier} at W={w}: the "
+                  f"ranks' results differ")
+            diff = float((got.double() - one[tier].double()).abs().max())
+            if tier in INT_TIERS:
+                ok = torch.equal(got, one[tier])
+                verdict = "bitwise" if ok else "DIFFER"
+            else:
+                # each merge add rounds once more: W * 2^-24 of |x| sums
+                lim = bound[tier] + w * U * absum
+                worst = float(((got.double() - ref).abs() / lim).max())
+                ok = worst <= 1.0 and all(rec["own_merge"] for rec in recs)
+                verdict = (f"own rank-order merge "
+                           f"{'bitwise' if ok else 'DIFFER'}, err/bound vs "
+                           f"float64 {worst:.4f}")
+            print(f"check train-elastic reduce {tier:13s} W={w}: "
+                  f"{verdict}; max|sharded - one process| {diff:g}; K1 "
+                  f"launches per rank {[rec['launches'] for rec in recs]}; "
+                  f"ms per rank {[round(rec['ms'], 3) for rec in recs]}; "
+                  f"bytes across a rank "
+                  f"{recs[0]['stats']['bytes_across']}, staged "
+                  f"{recs[0]['stats']['bytes_staged']} | {smi}", flush=True)
+            check(ok and all(rec["launches"] >= 1 for rec in recs),
+                  f"train-elastic: {tier} at W={w}: the sharded reduce "
+                  f"failed its check")
+
+    # check 2: the elastic mean bitwise across W; the tree's residual
+    for tier in TIERS:
+        dig = {w: {o["elastic"][tier]["digest"] for o in runs[w]}
+               for w in (1, 2, 4)}
+        tree = {w: {o["tree"][tier]["digest"] for o in runs[w]}
+                for w in (1, 2, 4)}
+        across = len(set().union(*dig.values())) == 1
+        replicated = all(len(v) == 1 for v in list(dig.values())
+                         + list(tree.values()))
+        res = [o["tree"][tier]["residual"] for o in runs[2]]
+        ms = {w: round(runs[w][0]["elastic"][tier]["ms"], 3)
+              for w in (1, 2, 4)}
+        print(f"check train-elastic elastic_reduce_mean {tier:13s}: "
+              f"W=1,2,4 {'bitwise' if across else 'differ'}; every rank's "
+              f"result its group's {'yes' if replicated else 'NO'}; ms "
+              f"{ms}; collective_mean_tree residual (W=2) {res}", flush=True)
+        check(replicated, f"train-elastic: {tier}: ranks disagree")
+        if tier in INT_TIERS:
+            check(across, f"train-elastic: {tier}: the elastic mean "
+                  f"depends on the rank count")
+        if tier == "compensated":
+            check(all(v is not None and v > 0 for v in res),
+                  "train-elastic: compensated returned no residual")
+
+    # check 3: xlstm-125m resumed from 2 ranks onto 4 and onto 1
+    whole = runs[2][0]["train"]
+    for w in (2, 4, 1):
+        tr = [o["train"] for o in runs[w]]
+        same_ranks = len({t["digest"] for t in tr}) == 1
+        print(f"train-elastic: xlstm-125m W={w} from step {tr[0]['start']}: "
+              f"losses {[float(v) for v in tr[0]['losses']]}; ms a step "
+              f"{[round(v, 1) for v in tr[0]['ms']]}; K1 launches a step "
+              f"per rank {[t['launches'] for t in tr]}; bytes across a "
+              f"rank a step {tr[0]['stats'][-1]['bytes_across']}, staged "
+              f"{tr[0]['stats'][-1]['bytes_staged']}, ms in collectives "
+              f"{[round(st['ms'], 1) for st in tr[0]['stats']]}; peak "
+              f"per rank "
+              f"{[round(t['peak'] / 2 ** 30, 2) for t in tr]} GiB; ranks "
+              f"{'bitwise' if same_ranks else 'DIFFER'} | {smi}", flush=True)
+        check(same_ranks and all(min(t["launches"]) >= 1 for t in tr),
+              f"train-elastic: W={w}: ranks differ or K1 did not launch")
+        if w != 2:
+            ok = (tr[0]["digest"] == whole["digest"] and all(
+                torch.equal(a, b) for a, b in zip(
+                    tr[0]["losses"], whole["losses"][ELASTIC_SAVE:])))
+            print(f"check train-elastic resume 2 -> {w}: params and losses "
+                  f"{'bitwise' if ok else 'DIFFER'} the uninterrupted "
+                  f"run's", flush=True)
+            check(ok, f"train-elastic: the resume onto {w} rank(s) is not "
+                  f"bitwise")
+
+    # check 4: the launcher's compressed step on 2 ranks, losses falling
+    log = runs[2][0]["launch"]["log"]
+    losses = [float(ln.split()[3]) for ln in log.splitlines()
+              if ln.startswith("step")]
+    print(f"check train-elastic launcher --compress-bits 8 --microbatches 2 "
+          f"on 2 ranks: losses {losses} in "
+          f"{runs[2][0]['launch']['s']:.1f} s; bytes across rank 0 "
+          f"{runs[2][0]['launch']['stats']['bytes_across']}, staged "
+          f"{runs[2][0]['launch']['stats']['bytes_staged']}, ms in "
+          f"collectives {runs[2][0]['launch']['stats']['ms']:.1f}",
+          flush=True)
+    check(len(losses) == LAUNCH_STEPS and losses[-1] < losses[0],
+          "train-elastic: the launcher's losses did not fall")
+    check(runs[2][1]["launch"]["log"] == "",
+          "train-elastic: a rank other than 0 printed")
+
+    # K1 at the elastic step's shapes: a stack of W=2's 4 microbatch rows
+    # of the largest leaf whose padded plain version fits (w_if, 36,864
+    # values), against its plain version; and at the embedding's shape
+    leaves = convert.stacked_leaves(init_params(cfg, device="meta"))
+    name = max((k for k, v in leaves.items() if v.numel() <= 1 << 17),
+               key=lambda k: leaves[k].numel())
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 211)
+    rows = ELASTIC_BATCH // 2
+    stack = torch.randn((rows, leaves[name].numel()), generator=g,
+                        device=dev) * 1e-3
+    zeros = torch.zeros(rows, dtype=torch.int32, device=dev)
+    pol = get_policy("exact2")
+    dom_i = pol.prepare(stack, rows)[0].to(torch.int32)
+    entry = k1_entry(f"elastic {name}", stack, zeros, 1, "exact2", smi,
+                     library=lambda: torch.zeros(
+                         (1, dom_i.shape[1]), dtype=torch.int32,
+                         device=dev).index_add_(0, zeros.long(), dom_i))
+    del stack, dom_i
+    emb = leaves["embed"].numel()
+    big = torch.randn((rows, emb), generator=g, device=dev) * 1e-3
+    dom, _ = pol.prepare(big, rows)
+    ms = cuda_ms(lambda: K.segsum_policy_cuda(dom, zeros, 1, policy=pol,
+                                              block_rows=512), 3)
+    nbytes = dom.numel() * 4
+    print(f"time train-elastic K1 exact2 at the embedding's shape ({rows} x "
+          f"{emb}, domain {nbytes / 1e9:.2f} GB): {ms:.3f} ms, bound "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms | {smi}", flush=True)
+    del big, dom
+    torch.cuda.empty_cache()
+    launches = sum(sum(o["train"]["launches"]) for o in runs[2])
+    print(f"train-elastic: the phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return [dict(entry, launches=launches)]
+
+
 def vlm_positions(n_before, n_after, grid, dev):
     """(S, 3) int32 M-RoPE positions of one prompt: ``n_before`` text
     tokens (the three streams equal), a ``grid`` x ``grid`` patch grid at
@@ -4985,6 +5444,9 @@ def main(argv=None) -> int:
           flush=True)
     kernels += serve_encdec_phase(args.seed, dev, smi)
     print(f"elapsed after phase 20: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    kernels += train_elastic_phase(args.seed, dev, smi)
+    print(f"elapsed after phase 21: {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)

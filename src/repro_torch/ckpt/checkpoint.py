@@ -38,7 +38,13 @@ snapshot into the template's own tensors (the train state's leaves, of
 which the model's parameters are views).
 
 The reference's ``shardings=`` (placing leaves on a JAX mesh) has no
-counterpart; ``device=`` places every leaf on one device.
+counterpart beyond the device: under the port's pure data parallelism
+every rank holds the whole train state, so each rank restores the same
+snapshot onto its own device (``device=``, or in place into its own
+tensors), and a snapshot resumes at any world size.  A train state with
+``residuals`` (the data-parallel step's error feedback,
+``train.checkpoint_state``) is a tree like any other; the launcher
+saves each rank's residuals stacked in rank order.
 """
 
 from __future__ import annotations

@@ -3,8 +3,10 @@ utilities (``segmented``), the fixed pairing trees (``trees``) and the
 gradient juggler (``juggler``), exported under the reference's names."""
 
 from . import intac, juggler, segmented, trees  # noqa: F401
-from .intac import (Limb3State, LimbState, intac_sum,  # noqa: F401
-                    limb3_finalize, limb3_init, limb_add, limb_add3,
+from .intac import (Limb3State, LimbState, bin_psum,  # noqa: F401
+                    compressed_psum_mean, compressed_psum_mean_tree,
+                    intac_psum, intac_psum2, intac_psum3, intac_sum,
+                    limb3_finalize, limb3_merge_across, limb3_init, limb_add, limb_add3,
                     limb_finalize, limb_init, limb_merge, limb_merge3,
                     limb_split3, limbs_canonical, limbs_resolve,
                     limbs_resolve3)

@@ -8,9 +8,12 @@ three-limb carry-save states (``LimbState``, ``Limb3State``) that the
 streaming accumulators of ``reduce.accumulator`` push into.  Every
 function is elementwise (or a column sum) on tensors and runs on
 whatever device its input lives on; each one gives the reference's bits
-on the inputs where both are IEEE-exact.  The cross-device merges
-(``intac_psum*``, ``limb3_merge_across``) are not here: the port runs
-on one device.
+on the inputs where both are IEEE-exact.  The cross-rank sums
+(``intac_psum``, ``intac_psum2``, ``intac_psum3``, ``bin_psum``,
+``limb3_merge_across``, ``compressed_psum_mean``) take a process group
+where the reference takes a mesh axis, and cross ranks only through
+``distributed.comm``: integer payloads in one ``psum``, the shared
+scale or anchor from a ``pmax``.
 
 Two places depart from a literal transcription, on purpose:
 
@@ -36,6 +39,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from ..distributed import comm
 
 LIMB_SHIFT = 15
 BIN_BITS = 8
@@ -391,3 +396,129 @@ def limbs_resolve3_binned(hi: torch.Tensor, lo: torch.Tensor,
         acc, e = two_sum(acc, term)
         cmp_ = cmp_ + e
     return acc + cmp_
+
+
+# ---------------------------------------------------------------------------
+# Sums across the ranks of a process group
+# ---------------------------------------------------------------------------
+
+
+def fused_psum(arrays, group):
+    """One integer ``psum`` per dtype instead of one per tensor: the
+    tensors of a dtype are concatenated, summed across the group's ranks
+    in one collective and split back.  psum is elementwise, so the bits
+    are those of one collective each.  Integer tensors only
+    (``comm.psum``)."""
+    arrays = tuple(arrays)
+    by_dtype = {}
+    for i, a in enumerate(arrays):
+        by_dtype.setdefault(a.dtype, []).append(i)
+    out = [None] * len(arrays)
+    for idxs in by_dtype.values():
+        flat = comm.psum(torch.cat([arrays[i].reshape(-1) for i in idxs]),
+                         group)
+        off = 0
+        for i in idxs:
+            size = arrays[i].numel()
+            out[i] = flat[off:off + size].reshape(arrays[i].shape)
+            off += size
+    return tuple(out)
+
+
+def _gmax(x: torch.Tensor, group) -> torch.Tensor:
+    return comm.pmax(torch.max(torch.abs(x.to(torch.float32))), group)
+
+
+def intac_psum(x: torch.Tensor, group, *, qbits: int = 30,
+               nterms: Optional[int] = None) -> torch.Tensor:
+    """Bitwise-deterministic sum across ranks: one power-of-two scale from
+    the pmax-shared max |x| and the rank count, int32 quanta summed by an
+    integer ``psum`` (any order, the same bits), dequantized once."""
+    n = nterms or comm.axis_size(group)
+    scale = choose_scale(_gmax(x, group), n, qbits).to(x.device)
+    q = quantize(x, scale)
+    return dequantize(comm.psum(q, group), scale)
+
+
+def intac_psum2(x: torch.Tensor, group, *, qbits: int = 30) -> torch.Tensor:
+    """Two-limb exact sum across ranks: the scale sized by magnitude alone
+    (``num_terms=1``), each rank's quanta split into (hi, lo) limbs, both
+    limbs summed as integers, one ``limbs_resolve``."""
+    scale = choose_scale(_gmax(x, group), 1, qbits).to(x.device)
+    hi, lo = limb_split(quantize(x, scale))
+    hi, lo = fused_psum((hi, lo), group)
+    return limbs_resolve(hi, lo, scale)
+
+
+def limb3_merge_across(hi: torch.Tensor, lo: torch.Tensor, res: torch.Tensor,
+                       comp: torch.Tensor, group):
+    """The one merge of three-limb state across ranks -> (hi, lo, res,
+    comp): the limbs sum as integers; the residual pair is split into
+    exponent-indexed int32 digits of a window anchored at the
+    pmax-shared residual maximum, the digits sum as integers in the same
+    ``psum`` as the limbs, and one carry-resolve rebuilds the residual
+    (comp comes back zero).  Every input to the result is a pure
+    function of the ranks' states taken together, so the merged state is
+    bitwise the same at any rank count or order."""
+    m = torch.maximum(torch.max(torch.abs(res)), torch.max(torch.abs(comp)))
+    e_ref = bin_ref_exponent(comm.pmax(m, group))
+    digits = (bin_split(res, e_ref, bits=RES_BIN_BITS, num=RES_NUM_BINS)
+              + bin_split(comp, e_ref, bits=RES_BIN_BITS, num=RES_NUM_BINS))
+    hi, lo, digits = fused_psum((hi, lo, digits), group)
+    res = bin_combine(digits, e_ref, bits=RES_BIN_BITS)
+    return hi, lo, res, torch.zeros_like(res)
+
+
+def intac_psum3(x: torch.Tensor, group, *, qbits: int = 30) -> torch.Tensor:
+    """Three-limb exact sum across ranks: ``intac_psum2``'s limbs plus the
+    exactly captured quantization residual (``limb3_merge_across``);
+    bitwise the same at any rank count, within 1 ulp of float64."""
+    scale = choose_scale(_gmax(x, group), 1, qbits).to(x.device)
+    hi, lo, res = limb_split3(x, scale)
+    hi, lo, res, comp = limb3_merge_across(hi, lo, res, torch.zeros_like(res),
+                                           group)
+    return limbs_resolve3(hi, lo, res, scale, comp=comp)
+
+
+def bin_psum(x: torch.Tensor, group) -> torch.Tensor:
+    """Exponent-binned exact sum across ranks: a pmax-shared anchor, each
+    rank's digit bins summed as integers, one carry-resolve."""
+    e_ref = bin_ref_exponent(_gmax(x, group)).to(x.device)
+    return bin_combine(comm.psum(bin_split(x, e_ref), group), e_ref)
+
+
+class EFState(NamedTuple):
+    """Error-feedback residual of the compressed gradient mean."""
+    residual: torch.Tensor
+
+
+def compressed_psum_mean(x: torch.Tensor, residual: torch.Tensor, group, *,
+                         bits: int = 8):
+    """The compressed gradient mean with error feedback -> (mean, new
+    residual): the carried residual is added, one power-of-two scale for
+    ``bits``-bit payloads is shared by pmax, the quanta sum as integers
+    across ranks and are dequantized once; what quantization dropped on
+    this rank is its next residual."""
+    xr = x.to(torch.float32) + residual
+    n = comm.axis_size(group)
+    scale = choose_scale(_gmax(xr, group), 1, qbits=bits - 1).to(x.device)
+    q = quantize(xr, scale)
+    new_residual = xr - dequantize(q, scale)
+    total = comm.psum(q, group)
+    return dequantize(total, scale) / n, new_residual
+
+
+def compressed_psum_mean_tree(grads, residuals, group, *, bits: int = 8):
+    """``compressed_psum_mean`` over a dict of tensors, leaf by leaf in
+    the dict's order -> (means, new residuals)."""
+    out, res = {}, {}
+    for k, g in grads.items():
+        out[k], res[k] = compressed_psum_mean(g, residuals[k], group,
+                                              bits=bits)
+    return out, res
+
+
+def zeros_like_residuals(grads):
+    """Zero float32 residuals shaped as ``grads`` (a dict of tensors)."""
+    return {k: torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+            for k, g in grads.items()}

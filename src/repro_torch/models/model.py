@@ -491,8 +491,9 @@ def loss_fn(model: LM, batch, *, moe_impl: str = "capacity",
     cfg = model.cfg
     if logits_pspec is not None:
         raise NotImplementedError(
-            "loss_fn(logits_pspec=): a sharded vocabulary needs a mesh — "
-            "ROADMAP.md queue 1, item 5 (multi-device) brings it")
+            "loss_fn(logits_pspec=): a sharded vocabulary needs "
+            "distributed/sharding.py — ROADMAP.md queue 1, item 6 brings "
+            "it")
     enc_out = (encode(model, batch["enc_embeds"], remat=remat)
                if cfg.is_encdec else None)
     tokens = batch.get("tokens")

@@ -1,4 +1,5 @@
-"""repro_torch.reduce — one front door for every reduction, on one device.
+"""repro_torch.reduce — one front door for every reduction, on one device
+or across the ranks of a process group.
 
 Three orthogonal knobs, as in the reference package:
 
@@ -7,7 +8,12 @@ Three orthogonal knobs, as in the reference package:
   * **policy** (``policy.py``): fast / compensated / exact / exact2 /
     procrastinate;
   * **backend** (``backends.py``): ref / blocked (plain PyTorch) and cuda
-    (the hand-written Hopper kernel) — bitwise equal per policy.
+    (the hand-written Hopper kernel) — bitwise equal per policy — and
+    shard_map, which runs one of them in each rank of a process group.
+
+``collective.py`` holds the means across ranks (``collective_mean`` and
+its tree, weighted and moments faces, ``elastic_reduce_mean``) and the
+carry merge of the ``shard_map`` executor.
 
 The module itself is callable: ``repro_torch.reduce(values, ...)``.
 """
@@ -16,8 +22,9 @@ from .accumulator import (Accumulator, BinAccumulator,  # noqa: F401
                           CascadeAccumulator, FlashAccumulator,
                           KahanAccumulator, Limb3Accumulator,
                           LimbAccumulator, TreeAccumulator,
-                          accumulate_microbatch_grads, merge_tree,
-                          reduce_microbatch_grads, scan_accumulate)
+                          accumulate_microbatch_grads, merge_across,
+                          merge_tree, reduce_microbatch_grads,
+                          scan_accumulate)
 from .algebra import (REDUCE_OPS, ReduceOp, cascade_poly_coeffs,  # noqa: F401
                       cascade_weights, fir_weights, get_op, poly_weights,
                       register_op)
@@ -25,7 +32,11 @@ from .api import ReduceSpec, ReduceStatus, reduce  # noqa: F401
 from .backends import (BACKENDS, Backend, OUT_OF_RANGE_LABEL,  # noqa: F401
                        get_backend, mask_out_of_range, register_backend,
                        select_backend, select_local_backend)
-from .policy import (POLICIES, Policy, get_policy,  # noqa: F401
+from .collective import (COLLECTIVE_POLICIES,  # noqa: F401
+                         collective_mean, collective_mean_tree,
+                         collective_moments, collective_weighted_mean,
+                         elastic_reduce_mean, merge_carry_across)
+from .policy import (POLICIES, Policy, fused_psum, get_policy,  # noqa: F401
                      register_policy, two_sum)
 from .program import (BlockProgram, BlockStage,  # noqa: F401
                       block_contrib, plan_program)
@@ -54,6 +65,9 @@ __all__ = [
     "Accumulator", "TreeAccumulator", "KahanAccumulator",
     "LimbAccumulator", "Limb3Accumulator", "BinAccumulator",
     "FlashAccumulator", "CascadeAccumulator",
-    "scan_accumulate", "merge_tree", "reduce_microbatch_grads",
-    "accumulate_microbatch_grads",
+    "scan_accumulate", "merge_tree", "merge_across",
+    "reduce_microbatch_grads", "accumulate_microbatch_grads",
+    "COLLECTIVE_POLICIES", "collective_mean", "collective_mean_tree",
+    "collective_moments", "collective_weighted_mean", "elastic_reduce_mean",
+    "merge_carry_across", "fused_psum",
 ]

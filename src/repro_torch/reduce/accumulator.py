@@ -29,14 +29,20 @@ Instances:
 
 The integer states (limbs, bins) are bitwise the reference's for any
 push order.  The float states follow the reference's IEEE operations in
-the same order.  Each accumulator's ``merge_across`` (a merge across
-devices) is not ported: the port runs on one device.
+the same order.  ``merge_across`` merges the states of a process group's
+ranks (the reference merges across mesh axes): an accumulator's own
+``merge_across`` (``Limb3Accumulator``: the limbs and the residual's
+digits in one integer psum), else an integer ``psum`` of each leaf for
+one that declares ``merge_is_add`` (``BinAccumulator``), else a gather
+and a strict rank-order fold with ``merge``.
 
 Microbatch gradients take one of two paths, as in the reference:
 ``accumulate_microbatch_grads`` pushes each microbatch's gradient through
 a ``TreeAccumulator``; ``reduce_microbatch_grads`` stacks them into one
 (m, |leaf|) float32 stream per leaf and takes its mean through the
-``repro_torch.reduce`` front door (K1 on a CUDA device).  Under an integer
+``repro_torch.reduce`` front door (K1 on a CUDA device; with ``group=``
+each rank stacks its own microbatches and the ``shard_map`` executor
+reduces the group's stack).  Under an integer
 tier the scale is chosen from the whole stream, so the bits depend on
 what a leaf is: the train step passes its gradients in the reference's
 layout (``models.convert.to_reference``: each period position's leaf
@@ -55,6 +61,7 @@ import torch
 from ..core import intac, juggler
 from ..core.segmented import flash_finalize, flash_partial_combine
 from ..core.trees import pairwise_tree_sum_pytree
+from ..distributed import comm
 
 
 @runtime_checkable
@@ -111,13 +118,16 @@ class TreeAccumulator:
 
 def _map(fn, *trees):
     """``fn`` over the tensors of equal-structured trees (a tensor, or a
-    dict, tuple or list of them)."""
+    dict, tuple, NamedTuple or list of them); other leaves (``None``, an
+    int) pass through from the first tree."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: _map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(_map(fn, *parts) for parts in zip(*trees)))
     if isinstance(first, (tuple, list)):
         return type(first)(_map(fn, *parts) for parts in zip(*trees))
-    return fn(*trees)
+    return fn(*trees) if isinstance(first, torch.Tensor) else first
 
 
 class KahanAccumulator:
@@ -214,6 +224,17 @@ class Limb3Accumulator:
 
     def merge(self, a, b) -> intac.Limb3State:
         return intac.limb_merge3(a, b)
+
+    def merge_across(self, state, group) -> intac.Limb3State:
+        """The merge of the ranks' states, taken by the module's
+        ``merge_across`` in place of its generic paths: the shared
+        three-limb merge (``intac.limb3_merge_across``: the residual pair
+        re-binned as digits, one integer psum of [hi | lo | digits]); the
+        scale passes through and the wrap count sums as an integer."""
+        hi, lo, res, comp = intac.limb3_merge_across(
+            state.hi, state.lo, state.res, state.comp, group)
+        ovf = None if state.ovf is None else comm.psum(state.ovf, group)
+        return intac.Limb3State(hi, lo, res, comp, state.scale, ovf)
 
     def finalize(self, state) -> torch.Tensor:
         return intac.limb3_finalize(state)
@@ -407,8 +428,28 @@ def merge_tree(acc: Accumulator, states):
     return pairwise_tree_sum_pytree(items, combine=acc.merge)
 
 
-_ITEM5 = ("ROADMAP.md queue 1, item 5 (multi-device) brings it; the port "
-          "runs on one device")
+def merge_across(acc: Accumulator, state, group):
+    """Merge the accumulator states of ``group``'s ranks; every rank gets
+    the merged state.
+
+    ``merge`` is every accumulator's combiner; this is its collective
+    face, as ``collective.merge_carry_across`` is the policies'.  An
+    accumulator with its own ``merge_across`` method keeps the lowering
+    (``Limb3Accumulator``); one declaring ``merge_is_add`` (its leaves
+    integers: ``BinAccumulator``) sums each leaf with an integer
+    ``psum``; any other state is gathered leaf by leaf and folded with
+    ``merge`` strictly in rank order: deterministic, and exact wherever
+    ``merge`` is (``LimbAccumulator``)."""
+    own = getattr(acc, "merge_across", None)
+    if callable(own):
+        return own(state, group)
+    if getattr(acc, "merge_is_add", False):
+        return _map(lambda x: comm.psum(x, group), state)
+    gathered = _map(lambda x: comm.all_gather(x, group), state)
+    merged = _map(lambda g: g[0], gathered)
+    for k in range(1, comm.axis_size(group)):
+        merged = acc.merge(merged, _map(lambda g: g[k], gathered))
+    return merged
 
 
 def _grads_by_microbatch(grad_fn, params, microbatches, m: int):
@@ -424,7 +465,7 @@ def _grads_by_microbatch(grad_fn, params, microbatches, m: int):
 
 def reduce_microbatch_grads(grad_fn, params, microbatches, *,
                             num_microbatches: int, policy: str,
-                            backend=None, mesh=None):
+                            backend=None, group=None):
     """Microbatch gradient mean through the ``repro_torch.reduce`` front
     door.
 
@@ -437,13 +478,16 @@ def reduce_microbatch_grads(grad_fn, params, microbatches, *,
     executor), then cast back to the leaf's dtype: one reduction per
     leaf.  Under an integer tier the mean is bitwise independent of the
     microbatch count and the executor.  Keeps all m gradients alive.
-    Returns (mean grads, stacked aux).  ``mesh`` raises: this port runs
-    on one device.
+    Returns (mean grads, stacked aux).
+
+    ``group`` (a process group, the reference's ``mesh``): this rank's
+    ``num_microbatches`` microbatches are its contiguous share of the
+    group's, and each leaf's mean is over the whole group's stack,
+    through the ``shard_map`` executor (auto-selected under more than one
+    rank): under an integer tier the bits of one process running every
+    microbatch.  The aux stays this rank's.
     """
     from .api import ReduceSpec, reduce as _reduce
-    if mesh is not None:
-        raise NotImplementedError(f"reduce_microbatch_grads(mesh=): "
-                                  f"{_ITEM5}")
     spec = ReduceSpec(op="mean", policy=policy, backend=backend,
                       block_size=1)
     grads, aux = _grads_by_microbatch(grad_fn, params, microbatches,
@@ -459,8 +503,8 @@ def reduce_microbatch_grads(grad_fn, params, microbatches, *,
         for i, g in enumerate(parts):
             stream[i].copy_(g.reshape(-1))
         del parts, g
-        out[k] = _reduce(stream, spec=spec, device=dev).reshape(shape) \
-            .to(dtype)
+        out[k] = _reduce(stream, spec=spec, device=dev,
+                         group=group).reshape(shape).to(dtype)
         del stream
     return out, aux
 

@@ -11,6 +11,15 @@ policy, any executor.  The steps are the reference's, eagerly: the op's
 row-local ``pre``, ``Policy.prepare``, ``plan_program``, an executor,
 ``Policy.finalize`` and the op's ``post``.  It runs on the CUDA device
 unless the caller passes ``device="cpu"``.
+
+With ``group=`` (a process group of ``repro_torch.distributed.comm``;
+the reference's ``mesh=`` and ``axis_names=``) every rank of the group
+calls ``reduce`` with its own contiguous slice of the rows, rank 0
+holding the first, and every rank gets the whole stream's result: the
+``shard_map`` executor.  The row count and the quantization scale or
+window anchor are shared across the ranks (a ``psum``, a ``pmax``)
+before any rank maps its rows into the policy domain, so the integer
+tiers give the one-process bits at any rank count.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import torch
 
 from .. import resolve_device
 from ..core import intac
+from ..distributed import comm
 from .algebra import get_op
 from .backends import get_backend, mask_out_of_range, select_backend
 from .policy import get_policy
@@ -79,17 +89,18 @@ def _status_false(device) -> ReduceStatus:
                         torch.tensor(0, dtype=torch.int32, device=device))
 
 
-def _counts(segment_ids, num_segments: int, device):
-    """Exact int32 in-range row counts per segment, (S, 1).  Sentinel
-    rows park on a scratch row; int32 adds are order-free, so one
-    ``index_add_`` is exact."""
+def _counts(segment_ids, num_segments: int, device, group=None):
+    """Exact int32 in-range row counts per segment, (S, 1), summed over
+    ``group``'s ranks when given.  Sentinel rows park on a scratch row;
+    int32 adds are order-free, so one ``index_add_`` is exact."""
     ids = mask_out_of_range(segment_ids, num_segments).to(torch.int64)
     safe = torch.where(ids >= 0, ids, torch.full_like(ids, num_segments))
     cnt = torch.zeros((num_segments + 1, 1), dtype=torch.int32,
                       device=device)
     cnt.index_add_(0, safe, torch.ones((ids.shape[0], 1), dtype=torch.int32,
                                        device=device))
-    return cnt[:num_segments]
+    cnt = cnt[:num_segments]
+    return cnt if group is None else comm.psum(cnt, group)
 
 
 def _check_bounds(policy, n: int, block_size: int):
@@ -108,9 +119,10 @@ def _check_bounds(policy, n: int, block_size: int):
 
 
 def _sum(values, segment_ids, *, spec: ReduceSpec, num_segments: int,
-         with_status: bool):
+         with_status: bool, group=None):
     """The segmented sum of already op-transformed (N, W) rows, with
-    optional status: the part of the pipeline every op shares."""
+    optional status: the part of the pipeline every op shares.  Under
+    ``group`` the rows are this rank's and the sum is the group's."""
     policy = get_policy(spec.policy)
     n, d = values.shape
     dev = values.device
@@ -119,6 +131,9 @@ def _sum(values, segment_ids, *, spec: ReduceSpec, num_segments: int,
         raise ValueError(f"backend {backend.name!r} does not implement "
                          f"policy {policy.name!r} "
                          f"(capabilities: {sorted(backend.policies)})")
+    n_local = n
+    if group is not None:
+        n = comm.psum_int(n_local, group, device=dev)
     _check_bounds(policy, n, spec.block_size)
     status = _status_false(dev) if with_status else None
     if n == 0:
@@ -131,9 +146,12 @@ def _sum(values, segment_ids, *, spec: ReduceSpec, num_segments: int,
     values = torch.where(keep[:, None], values,
                          torch.zeros((), dtype=values.dtype, device=dev))
     if with_status:
-        status = status._replace(
-            nonfinite=torch.logical_not(torch.all(torch.isfinite(values))),
-            kept_rows=keep.to(torch.int32).sum(dtype=torch.int32))
+        bad = torch.logical_not(torch.all(torch.isfinite(values)))
+        kept = keep.to(torch.int32).sum(dtype=torch.int32)
+        if group is not None:
+            bad = comm.psum(bad.to(torch.int32), group) > 0
+            kept = comm.psum(kept, group)
+        status = status._replace(nonfinite=bad, kept_rows=kept)
     run_kw = {}
     if backend.staged:
         # the contrib form is a (policy, shape) decision, planned once
@@ -142,11 +160,29 @@ def _sum(values, segment_ids, *, spec: ReduceSpec, num_segments: int,
             policy, num_segments=num_segments,
             domain_width=policy.domain_width(d), block_size=spec.block_size,
             contrib=spec.contrib, op=spec.op)
-    domain, ctx = policy.prepare(values, n)
-    del values
-    carry = backend.run(domain, segment_ids, num_segments, policy=policy,
-                        block_size=spec.block_size, **run_kw)
-    del domain
+    if backend.distributed:
+        # the global statistic first (the max |value| of every rank's
+        # kept rows, and the group's row count), then each rank maps its
+        # own rows into the domain on that shared grid, inside the
+        # executor: bitwise the whole stream's domain, row for row
+        v32 = values.to(torch.float32)
+        del values
+        ctx = None
+        if policy.needs_max_stat:
+            m = (torch.max(torch.abs(v32)) if n_local else
+                 torch.zeros((), dtype=torch.float32, device=dev))
+            ctx = policy.prepare_ctx(comm.pmax(m, group), n)
+        carry = backend.run(v32, segment_ids, num_segments, policy=policy,
+                            block_size=spec.block_size, group=group,
+                            to_domain=policy.to_domain, ctx=ctx, **run_kw)
+        del v32
+    else:
+        domain, ctx = policy.prepare(values, n)
+        del values
+        carry = backend.run(domain, segment_ids, num_segments,
+                            policy=policy, block_size=spec.block_size,
+                            **run_kw)
+        del domain
     if with_status:
         sat = policy.carry_status(carry)
         if sat is not None:
@@ -212,7 +248,7 @@ def reduce(values, *, segment_ids=None, num_segments: Optional[int] = None,
            backend: Optional[str] = None, block_size: int = 512,
            contrib: str = "auto", weights=None, coeffs=None,
            spec: Optional[ReduceSpec] = None, with_status: bool = False,
-           on_overflow: str = "raise", device=None):
+           on_overflow: str = "raise", device=None, group=None):
     """Reduce a value stream, optionally partitioned into labeled sets.
 
     Args:
@@ -225,7 +261,9 @@ def reduce(values, *, segment_ids=None, num_segments: Optional[int] = None,
         "moments" (adds a leading (mean, var) axis) or "poly" (needs
         ``coeffs``).
       policy: "fast", "compensated", "exact", "exact2" or "procrastinate".
-      backend: "ref", "blocked", "cuda", or None to auto-select.
+      backend: "ref", "blocked", "cuda", "shard_map", or None to
+        auto-select (``shard_map`` under a group of more than one rank,
+        else ``cuda`` on a CUDA device and ``blocked`` on the CPU).
       block_size: rows per schedule block.
       contrib: gather form — "auto", "dot" or "lanes".
       weights / coeffs: per-row weights / static polynomial coefficients.
@@ -236,6 +274,11 @@ def reduce(values, *, segment_ids=None, num_segments: Optional[int] = None,
       device: where to run; None means "cuda" (raises without CUDA).
         The ``cuda`` backend raises for values that require grad: K1
         has no backward.
+      group: a process group (``repro_torch.distributed.comm``) whose
+        ranks each pass their own contiguous slice of the rows and each
+        get the whole stream's result; only for the distributed backend
+        (``shard_map``).  ``on_overflow="degrade"`` runs in one process
+        only.
 
     Returns:
       f32 tensor: (num_segments, D) / (num_segments,) when segmented,
@@ -261,10 +304,28 @@ def reduce(values, *, segment_ids=None, num_segments: Optional[int] = None,
     elif coeffs is not None and spec.coeffs is None:
         spec = spec.replace(coeffs=coeffs)
     pol = get_policy(spec.policy)
-    bk = (select_backend(pol, dev) if spec.backend is None
+    auto = spec.backend is None
+    bk = (select_backend(pol, dev, group) if auto
           else get_backend(spec.backend))
     spec = spec if spec.backend == bk.name else spec.replace(backend=bk.name)
-    if bk.name == "cuda" and getattr(values, "requires_grad", False):
+    if bk.distributed:
+        if group is None:
+            raise ValueError(f"backend {bk.name!r} runs across the ranks "
+                             f"of a process group: pass group=")
+        if on_overflow == "degrade":
+            raise ValueError("on_overflow='degrade' re-plans one process's "
+                             "stream; under group= keep on_overflow="
+                             "'raise'")
+    elif group is not None:
+        if not auto:
+            raise ValueError(f"backend {bk.name!r} is single-device; group= "
+                             f"only applies to distributed backends (e.g. "
+                             f"'shard_map')")
+        # auto-selection declined a one-rank group: the local executor
+        # over this rank's rows, which are the whole stream
+        group = None
+    on_k1 = bk.name == "cuda" or (bk.distributed and dev.type == "cuda")
+    if on_k1 and getattr(values, "requires_grad", False):
         # K1 is a ctypes launch with no backward: a gradient would stop
         # here without a word
         raise NotImplementedError(
@@ -322,9 +383,9 @@ def reduce(values, *, segment_ids=None, num_segments: Optional[int] = None,
     else:
         out, status = _sum(values, segment_ids, spec=spec,
                            num_segments=num_segments,
-                           with_status=with_status)
+                           with_status=with_status, group=group)
     if op_.needs_count:
-        out = op_.post(out, _counts(segment_ids, num_segments, dev))
+        out = op_.post(out, _counts(segment_ids, num_segments, dev, group))
     else:
         out = op_.post(out, None)
     if not segmented:

@@ -1,5 +1,5 @@
 """Backend registry for ``repro_torch.reduce`` — one schedule, three
-executors on one device.
+executors on one device and one across the ranks of a process group.
 
 Every executor runs the same block schedule: the (N, W) domain stream
 pads to whole row blocks with ``OUT_OF_RANGE_LABEL``, each block's
@@ -15,11 +15,17 @@ order.  The results are bitwise equal across executors, per policy:
   * ``cuda``    — the Hopper kernel (the reference's ``pallas``
                   backend); CUDA tensors only, and it raises rather than
                   fall back.
+  * ``shard_map`` — the reference's multi-device executor, kept under its
+                  name so that a spec carries across: each rank of a
+                  process group folds its own contiguous slice of rows
+                  with the local executor, and the carries merge across
+                  the ranks (``collective.merge_carry_across``).
 
 ``select_local_backend`` picks ``cuda`` for a CUDA device and
 ``blocked`` for the CPU, which the caller has to ask for; it raises for a
 policy the kernel does not implement rather than run the plain version
-on the card.
+on the card.  ``select_backend`` picks ``shard_map`` under a group of
+more than one rank.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import Callable, Dict, FrozenSet, Optional
 
 import torch
 
+from ..distributed import comm
 from .policy import Policy
 from .program import BlockProgram, block_contrib, plan_program  # noqa: F401
 
@@ -54,13 +61,16 @@ class Backend:
     #: staged executors accept ``program=`` (a planned ``BlockProgram``);
     #: ``reduce`` plans one only for them
     staged: bool = False
+    #: distributed executors take ``group=`` (a process group) and run in
+    #: every rank of it
+    distributed: bool = False
 
     def supports(self, policy: Policy) -> bool:
         return "*" in self.policies or policy.name in self.policies
 
 
 def register_backend(name: str, *, policies, description: str = "",
-                     staged: bool = False):
+                     staged: bool = False, distributed: bool = False):
     """Decorator: register ``fn`` as backend ``name`` (``policies``: an
     iterable of policy names, or "*" for schedule-generic executors)."""
     def deco(fn):
@@ -74,7 +84,8 @@ def register_backend(name: str, *, policies, description: str = "",
         else:
             caps = frozenset(policies)
         BACKENDS[name] = Backend(name=name, run=fn, policies=caps,
-                                 description=description, staged=staged)
+                                 description=description, staged=staged,
+                                 distributed=distributed)
         return fn
     return deco
 
@@ -104,8 +115,13 @@ def select_local_backend(policy: Policy, device) -> Backend:
     return get_backend("blocked")
 
 
-def select_backend(policy: Policy, device) -> Backend:
-    """Auto-selection; one device only in this package."""
+def select_backend(policy: Policy, device, group=None) -> Backend:
+    """Auto-selection: ``shard_map`` under a process group of more than
+    one rank, else the device's local executor."""
+    if group is not None and comm.axis_size(group) > 1:
+        cand = get_backend("shard_map")
+        if cand.supports(policy):
+            return cand
     return select_local_backend(policy, device)
 
 
@@ -189,3 +205,49 @@ def _run_cuda(values, segment_ids, num_segments, *, policy: Policy,
     return segsum_policy_cuda(values, segment_ids.to(torch.int32),
                               num_segments, policy=policy, program=program,
                               block_rows=block_size)
+
+
+@register_backend("shard_map", policies="*", distributed=True, staged=True,
+                  description="a process group's ranks: each folds its own "
+                              "rows with the local executor, the carries "
+                              "merge across the ranks")
+def _run_shard_map(values, segment_ids, num_segments, *, policy: Policy,
+                   block_size: int = 512,
+                   program: Optional[BlockProgram] = None, group=None,
+                   to_domain=None, ctx=None):
+    """Fold this rank's rows, then merge the carries of ``group``'s ranks.
+
+    Every rank of ``group`` calls this with its own contiguous slice of
+    the stream, rank 0 holding the first rows.  The slice is padded to
+    whole schedule blocks with ``OUT_OF_RANGE_LABEL`` rows, as the
+    reference pads each shard (the local executors pad, or read the
+    ragged last block as sentinel rows, which is the same).  Where every
+    slice but the last holds whole blocks (the reference's split: N
+    padded to W * block_size rows, an equal share each), a rank's blocks
+    are the whole stream's blocks; the integer tiers' bits do not depend
+    on the split at all.  The rank folds them with ``select_local_backend`` (K1 on a CUDA device)
+    and the carries merge with the policy's combiner
+    (``collective.merge_carry_across``): one integer ``psum`` for the
+    integer tiers, whose carry is then bitwise the one-process schedule's
+    at any rank count; a rank-order fold for the float tiers.  Every rank
+    returns the merged carry; ``finalize`` runs once, after this.
+
+    ``to_domain`` (with ``ctx``, the globally shared quantization scale
+    or window anchor) maps the raw rows into the policy domain inside the
+    rank, as the reference's staged path does; without it ``values`` are
+    already domain rows."""
+    from .collective import merge_carry_across
+    if group is None:
+        raise ValueError("backend 'shard_map' needs group= (a process "
+                         "group; repro_torch.distributed.comm.init_group)")
+    if values.shape[0] == 0:
+        w = (policy.domain_width(values.shape[1]) if to_domain is not None
+             else values.shape[1])
+        carry = policy.init(num_segments, w, device=values.device)
+    else:
+        if to_domain is not None:
+            values = to_domain(values, ctx)
+        inner = select_local_backend(policy, values.device)
+        carry = inner.run(values, segment_ids, num_segments, policy=policy,
+                          block_size=block_size, program=program)
+    return merge_carry_across(policy, carry, group)

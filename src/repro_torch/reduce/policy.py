@@ -17,8 +17,13 @@ The hooks are the reference's: ``prepare_ctx`` / ``to_domain`` /
 ``prepare``, the gather stage ``contrib`` (dot form) and
 ``contrib_lanes`` (lane form), ``init`` / ``update`` / ``carry_status``
 / ``finalize``, and the ``stage_costs`` hints ``plan_program`` reads.
-The cross-device hooks (``merge``, ``merge_across``, ``fused_psum``)
-belong to the multi-device executor and are not part of this package yet.
+The cross-rank hooks are the reference's too: ``merge`` combines two
+partial carries, and ``merge_across`` combines the carries of a process
+group's ranks (the ``shard_map`` executor's merge).  An integer carry
+merges by one fused ``psum`` per carry (``fused_psum``); a float carry
+(fast, compensated) is gathered and folded with ``merge`` strictly in
+rank order, where the reference's fast tier takes a float psum: a float
+sum across ranks has no pinned order.
 
 The gather stage works on a batch of schedule blocks at once: ``ids``
 (nb, B) int32 labels and ``vals`` (nb, B, W) domain rows give the
@@ -49,7 +54,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..core import intac
-from ..core.intac import two_sum  # noqa: F401  (re-export)
+from ..core.intac import fused_psum, two_sum  # noqa: F401  (re-export)
+from ..distributed import comm
 
 POLICIES: Dict[str, "Policy"] = {}
 
@@ -176,6 +182,8 @@ class Policy:
     #: domain columns per raw column (the digit planes of exact2 and
     #: procrastinate); the carry of every tier is (S, parts * D) at most
     parts: int = 1
+    #: True when ``merge`` is elementwise addition of every carry
+    merge_is_add: bool = True
 
     @property
     def integer(self) -> bool:
@@ -244,6 +252,25 @@ class Policy:
     def update(self, carry, contrib):
         return (carry[0] + contrib,)
 
+    def merge(self, a, b):
+        """Combine two partial carries: ``merge(run(blocks[:k]),
+        run(blocks[k:]))`` is ``run(blocks)``, exactly for the integer
+        tiers, to a tolerance for the float ones."""
+        return tuple(x + y for x, y in zip(a, b))
+
+    def merge_across(self, carry, group):
+        """Merge the carries of ``group``'s ranks (every rank gets the
+        merged carry): an integer carry that merges by addition takes one
+        ``fused_psum`` (the same bits in any order); any other carry is
+        gathered and folded with ``merge`` strictly in rank order."""
+        if self.merge_is_add and self.integer:
+            return fused_psum(carry, group)
+        gathered = tuple(comm.all_gather(c, group) for c in carry)
+        merged = tuple(g[0] for g in gathered)
+        for k in range(1, gathered[0].shape[0]):
+            merged = self.merge(merged, tuple(g[k] for g in gathered))
+        return merged
+
     def carry_status(self, carry):
         return None
 
@@ -264,12 +291,19 @@ class CompensatedPolicy(Policy):
 
     name = "compensated"
     carry_len = 2
+    merge_is_add = False            # the two-sum merge is order-sensitive
     update_ops_per_elem = 6
 
     def update(self, carry, contrib):
         acc, comp = carry
         s, e = two_sum(acc, contrib)
         return (s, comp + e)
+
+    def merge(self, a, b):
+        """Two-sum the partial sums; pool the compensations and the new
+        rounding error."""
+        s, e = two_sum(a[0], b[0])
+        return (s, a[1] + b[1] + e)
 
     def finalize(self, carry, ctx) -> torch.Tensor:
         acc, comp = carry

@@ -14,16 +14,16 @@ silently corrupts:
                                 ``CheckpointError``;
   * ``kill-mid-save`` (CLI)   — a host dying between the shard write and
                                 the atomic rename, leaving a ``.tmp``
-                                directory that must never be restored.
+                                directory that must never be restored;
+  * ``drop_shard_carry``      — a rank dropping out of a collective: its
+                                policy carry zeroed before the merge.
 
 The kill-mid-save fault needs a real process death, so it ships as a CLI:
 
     python -m repro_torch.testing.faults kill-mid-save <ckpt_dir> <step>
 
 It saves a small fixed tree with ``repro_torch.ckpt.save`` and dies with
-exit code 9 the moment the save reaches its rename.  (The reference's
-``drop_shard_carry``, a device dropping out of a collective, waits for
-the port's multi-device path.)
+exit code 9 the moment the save reaches its rename.
 """
 
 from __future__ import annotations
@@ -117,6 +117,23 @@ def corrupt_checkpoint(ckpt_dir, step: int, *, mode: str = "bitflip",
     else:
         raise ValueError(f"mode must be bitflip/truncate, got {mode!r}")
     return target
+
+
+# ---------------------------------------------------------------------------
+# collective faults
+# ---------------------------------------------------------------------------
+
+
+def drop_shard_carry(carry, group, shard_index: int):
+    """Zero rank ``shard_index``'s policy carry before
+    ``merge_carry_across``: a rank dropping out of the merge.  Carry
+    merges are linear, so the merged result is exactly the reduction over
+    the other ranks' rows: no garbage, and bitwise for the integer
+    tiers."""
+    from ..distributed import comm
+    if comm.axis_index(group) != shard_index:
+        return tuple(carry)
+    return tuple(torch.zeros_like(c) for c in carry)
 
 
 # ---------------------------------------------------------------------------

@@ -22,9 +22,13 @@ expert and shared leaves stacked as the others, its ``aux`` loss in the
 metrics.  An encoder-decoder's batch brings ``enc_embeds``, which the
 loss, the eval and the prefill step encode (``models.encode``) for the
 decoder's cross-attention; its decode step takes the memory as
-``enc_out``.  What this port lacks raises ``NotImplementedError`` naming
-the ``ROADMAP.md`` item that brings it: ``grad_reduce_mesh`` and
-``logits_pspec`` (queue 1, item 5, multi-device).
+``enc_out``.  ``grad_reduce_mesh`` (the reference's mesh) is a process
+group here: its ranks split the step's microbatches and each leaf's mean
+runs through the ``shard_map`` executor across them.  What this port
+lacks raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that
+brings it: ``logits_pspec`` (queue 1, item 6, ``distributed/sharding.py``).
+The data-parallel and elastic steps across a group's ranks are
+``repro_torch.distributed.collectives``.
 """
 
 from __future__ import annotations
@@ -39,10 +43,12 @@ from ..models.config import ModelConfig
 from ..models.model import (check_supported, decode_step, encode, forward,
                             loss_fn)
 from ..optim import adamw
+from ..distributed import comm
 from ..reduce.accumulator import (accumulate_microbatch_grads,
                                   reduce_microbatch_grads)
 
-_ITEM5 = "ROADMAP.md queue 1, item 5 (multi-device) brings it"
+_ITEM6 = ("ROADMAP.md queue 1, item 6 (distributed/sharding.py, a sharded "
+          "vocabulary) brings it")
 
 
 def _to_device(batch, dev):
@@ -56,18 +62,62 @@ def init_state(model) -> adamw.AdamWState:
     return adamw.init(convert.stacked_leaves(model))
 
 
-def checkpoint_state(model, opt_state: adamw.AdamWState) -> dict:
+def checkpoint_state(model, opt_state: adamw.AdamWState,
+                     residuals=None) -> dict:
     """The train state as the reference launcher checkpoints it,
     ``{"params": ..., "opt": AdamWState}``, nested as the reference's
     tree (``convert.nest``), so a snapshot's leaf keys are the
     reference's.  It holds the live tensors: the parameters' stacked
     leaves (of which the model's parameters are views) and the moments,
     so ``ckpt.restore(..., inplace=True)`` into it sets the model and the
-    optimizer state."""
-    return {"params": convert.nest(convert.stacked_leaves(model)),
-            "opt": adamw.AdamWState(mu=convert.nest(opt_state.mu),
-                                    nu=convert.nest(opt_state.nu),
-                                    count=opt_state.count)}
+    optimizer state.  ``residuals`` (a dict of tensors keyed as the
+    leaves: the data-parallel step's error-feedback state) is nested
+    under ``"residuals"`` the same way."""
+    state = {"params": convert.nest(convert.stacked_leaves(model)),
+             "opt": adamw.AdamWState(mu=convert.nest(opt_state.mu),
+                                     nu=convert.nest(opt_state.nu),
+                                     count=opt_state.count)}
+    if residuals is not None:
+        state["residuals"] = convert.nest(residuals)
+    return state
+
+
+def make_grad_fn(cfg: ModelConfig, *, moe_impl: str = "capacity",
+                 remat: bool = True):
+    """-> ``grad_fn(model, batch) -> (grads, (loss, metrics))``: one
+    forward and backward of ``loss_fn``, the gradients in the reference's
+    layout (``convert.to_reference``), loss and metrics detached."""
+    def grad_fn(model, batch):
+        named = dict(model.named_parameters())
+        loss, metrics = loss_fn(model, batch, moe_impl=moe_impl,
+                                remat=remat)
+        # an ``embeds`` batch leaves the embedding unused: its gradient
+        # is zeros, as the reference's
+        grads = torch.autograd.grad(loss, list(named.values()),
+                                    materialize_grads=True)
+        grads = convert.to_reference(cfg, dict(zip(named, grads)))
+        return grads, (loss.detach(),
+                       {k: v.detach() for k, v in metrics.items()})
+    return grad_fn
+
+
+def apply_update(model, opt_state: adamw.AdamWState, grads, lr_fn, *,
+                 clip_norm: Optional[float] = 1.0, weight_decay: float = 0.1,
+                 norm_policy: Optional[str] = None):
+    """The global-norm clip (``norm_policy`` routes its norm through
+    ``repro_torch.reduce``) and AdamW, in place on the model's stacked
+    leaves -> (opt_state, grad norm, lr); ``lr`` is ``lr_fn(count + 1)``,
+    the norm 0 without a clip."""
+    gnorm = torch.zeros((), dtype=torch.float32,
+                        device=opt_state.count.device)
+    if clip_norm is not None:
+        gnorm = adamw.global_norm(grads, policy=norm_policy)
+    lr = lr_fn(opt_state.count + 1)          # count is 0-based
+    opt_state = adamw.update_(
+        grads, opt_state, convert.stacked_leaves(model), lr=lr,
+        gnorm=None if clip_norm is None else gnorm, clip_norm=clip_norm,
+        weight_decay=weight_decay)
+    return opt_state, gnorm, lr
 
 
 def make_train_step(cfg: ModelConfig, *, lr_fn: Callable,
@@ -98,28 +148,36 @@ def make_train_step(cfg: ModelConfig, *, lr_fn: Callable,
     ``moe_impl`` picks a model with experts' dispatch (``capacity``, the
     reference's default, or ``dense``); the metrics carry its ``aux``
     loss.  The step switches gradients on for every parameter of the
-    model it trains."""
+    model it trains.
+
+    ``grad_reduce_mesh`` is a process group (``distributed.comm``) of W
+    ranks, each calling the step with the same batch: rank r computes the
+    r-th contiguous m/W of the microbatches, each leaf's mean over all m
+    runs through the ``shard_map`` executor across the ranks, and the
+    microbatch losses and metrics are gathered in rank order.  Under an
+    integer ``grad_reduce`` every rank gets the bits of one process
+    running all m.  It needs ``grad_reduce`` and m divisible by W."""
     check_supported(cfg)
-    if grad_reduce_mesh is not None:
-        raise NotImplementedError(f"make_train_step(grad_reduce_mesh=): "
-                                  f"{_ITEM5}")
     if logits_pspec is not None:
         raise NotImplementedError(f"make_train_step(logits_pspec=): "
-                                  f"{_ITEM5}")
+                                  f"{_ITEM6}")
     dev = resolve_device(device)
     m = num_microbatches
+    group = grad_reduce_mesh
+    m_local = m
+    if group is not None:
+        w = comm.axis_size(group)
+        if grad_reduce is None or m % w:
+            raise ValueError(
+                f"make_train_step(grad_reduce_mesh=): the group's {w} "
+                f"ranks split the microbatches of a grad_reduce mean; got "
+                f"grad_reduce={grad_reduce!r}, num_microbatches={m}")
+        m_local = m // w
+    grad_fn = make_grad_fn(cfg, moe_impl=moe_impl, remat=remat)
 
-    def grad_fn(model, batch):
-        named = dict(model.named_parameters())
-        loss, metrics = loss_fn(model, batch, moe_impl=moe_impl,
-                                remat=remat)
-        # an ``embeds`` batch leaves the embedding unused: its gradient
-        # is zeros, as the reference's
-        grads = torch.autograd.grad(loss, list(named.values()),
-                                    materialize_grads=True)
-        grads = convert.to_reference(cfg, dict(zip(named, grads)))
-        return grads, (loss.detach(),
-                       {k: v.detach() for k, v in metrics.items()})
+    def gathered(x):
+        """This rank's (m_local,) values -> the group's (m,), in order."""
+        return x if group is None else comm.all_gather(x, group).reshape(-1)
 
     def train_step(model, opt_state: adamw.AdamWState, batch):
         model.requires_grad_(True)
@@ -127,23 +185,23 @@ def make_train_step(cfg: ModelConfig, *, lr_fn: Callable,
         if m > 1:
             mbs = {k: v.reshape((m, v.shape[0] // m) + v.shape[1:])
                    for k, v in batch.items()}
+            if group is not None:
+                r = comm.axis_index(group)
+                mbs = {k: v[r * m_local:(r + 1) * m_local]
+                       for k, v in mbs.items()}
             accumulate = (accumulate_microbatch_grads if grad_reduce is None
                           else reduce_microbatch_grads)
-            kw = {} if grad_reduce is None else {"policy": grad_reduce}
+            kw = {} if grad_reduce is None else {"policy": grad_reduce,
+                                                 "group": group}
             grads, (losses, metricses) = accumulate(
-                grad_fn, model, mbs, num_microbatches=m, **kw)
-            loss = losses.mean()
-            metrics = {k: v.mean() for k, v in metricses.items()}
+                grad_fn, model, mbs, num_microbatches=m_local, **kw)
+            loss = gathered(losses).mean()
+            metrics = {k: gathered(v).mean() for k, v in metricses.items()}
         else:
             grads, (loss, metrics) = grad_fn(model, batch)
-        gnorm = torch.zeros((), dtype=torch.float32, device=dev)
-        if clip_norm is not None:
-            gnorm = adamw.global_norm(grads, policy=norm_policy)
-        lr = lr_fn(opt_state.count + 1)          # count is 0-based
-        opt_state = adamw.update_(
-            grads, opt_state, convert.stacked_leaves(model), lr=lr,
-            gnorm=None if clip_norm is None else gnorm, clip_norm=clip_norm,
-            weight_decay=weight_decay)
+        opt_state, gnorm, lr = apply_update(
+            model, opt_state, grads, lr_fn, clip_norm=clip_norm,
+            weight_decay=weight_decay, norm_policy=norm_policy)
         metrics = dict(metrics, loss=loss, grad_norm=gnorm, lr=lr)
         return model, opt_state, metrics
     return train_step
@@ -205,5 +263,6 @@ def make_decode_step(cfg: ModelConfig, *, moe_impl: str = "capacity",
     return dstep
 
 
-__all__ = ["init_state", "checkpoint_state", "make_train_step", "make_eval_step", "make_prefill_step",
+__all__ = ["init_state", "checkpoint_state", "make_grad_fn", "apply_update",
+           "make_train_step", "make_eval_step", "make_prefill_step",
            "make_decode_step"]

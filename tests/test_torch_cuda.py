@@ -949,3 +949,51 @@ def test_cuda_seamless_prefill_and_decode_with_enc_out_match_the_cpu(cuda):
             for a, b in zip(want, got)]
     assert max(errs) <= 2e-5, errs
     assert launches[1] == 4 * 2 * cfg.n_layers
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_reduce_over_two_ranks_bitwise_one_process(cuda,
+                                                                tmp_path):
+    """Phase 21's check 1 at a small size: 2 ranks (fresh interpreters,
+    gloo, every payload staged through the host) each folding their slice
+    of the reference's split with K1; the integer tiers bitwise this
+    process's ``reduce(backend="cuda")`` of the whole stream."""
+    from pathlib import Path
+    from repro_torch.distributed import spawn
+    vals, ids = _stream(21, 3000, 4, 7)
+    outs = spawn.run_ranks(
+        "torch_dist_workers:sharded_reduce", 2, workdir=tmp_path / "w2",
+        kwargs={"stream": vals, "ids": ids, "nseg": 7, "block": 128,
+                "device": "cuda"},
+        paths=[str(Path(__file__).resolve().parent)], timeout=600)
+    for p in ("exact", "exact2", "procrastinate"):
+        one = repro_torch.reduce(torch.tensor(vals, device=cuda),
+                                 segment_ids=torch.tensor(ids, device=cuda),
+                                 num_segments=7, policy=p, block_size=128,
+                                 backend="cuda").cpu()
+        assert torch.equal(outs[0][p], one) and torch.equal(outs[1][p], one)
+
+
+@pytest.mark.cuda
+def test_cuda_elastic_resume_from_two_ranks_onto_four_bitwise(cuda,
+                                                              tmp_path):
+    """Phase 21's check 3 at SMOKE size: xlstm's elastic step with its
+    reductions on K1, 4 steps on 2 ranks with a snapshot after step 2,
+    steps 3 and 4 from it on 4 ranks: the parameters and losses bit for
+    bit the uninterrupted run's."""
+    from pathlib import Path
+    from repro_torch.distributed import spawn
+    tests = [str(Path(__file__).resolve().parent)]
+    kw = {"tree": None, "ckpt_dir": str(tmp_path / "ck"), "device": "cuda"}
+    two = spawn.run_ranks("torch_dist_workers:elastic_run", 2,
+                          workdir=tmp_path / "w2",
+                          kwargs=dict(kw, steps=4, save_at=2), paths=tests,
+                          timeout=600)
+    four = spawn.run_ranks("torch_dist_workers:elastic_run", 4,
+                           workdir=tmp_path / "w4",
+                           kwargs=dict(kw, steps=2, restore=True),
+                           paths=tests, timeout=600)
+    for k, v in two[0]["last"].items():
+        assert torch.equal(four[0]["last"][k], v), k
+    for a, b in zip(four[0]["losses"], two[0]["losses"][2:]):
+        assert torch.equal(a, b)

@@ -213,13 +213,29 @@ def test_reduce_cuda_backend_raises_for_values_that_require_grad():
 
 
 def test_multi_device_knobs_raise():
-    """The mesh of ``reduce_microbatch_grads`` waits for the multi-device
-    item."""
-    tree = {"a": torch.ones(2, 3)}
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TACC.reduce_microbatch_grads(lambda p, mb: (mb, 0.0), None, tree,
-                                     num_microbatches=2, policy="exact",
-                                     mesh=object())
+    """The multi-device knob of ``reduce_microbatch_grads`` is a process
+    group (the reference's mesh): over a one-rank group (this process,
+    ``comm.init_group``) the auto-selected mean is bitwise the one
+    without a group, and the reference's rules for a mesh hold: a
+    single-device backend given a group raises, and so does the
+    ``shard_map`` executor without one."""
+    from repro_torch.distributed import comm
+    group = comm.init_group("gloo")
+    rng = np.random.default_rng(7)
+    tree = {"a": torch.from_numpy(rng.standard_normal((2, 3))
+                                  .astype(np.float32))}
+
+    def run(**kw):
+        return TACC.reduce_microbatch_grads(
+            lambda p, mb: (mb, torch.zeros(())), None, tree,
+            num_microbatches=2,
+            policy="exact", **kw)[0]["a"]
+    assert torch.equal(run(group=group), run())
+    assert torch.equal(run(group=group, backend="shard_map"), run())
+    with pytest.raises(ValueError, match="single-device"):
+        run(group=group, backend="blocked")
+    with pytest.raises(ValueError, match="group="):
+        run(backend="shard_map")
 
 
 @pytest.mark.parametrize("tier", ("fast", "exact2", "procrastinate"))

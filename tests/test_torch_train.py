@@ -308,7 +308,10 @@ def test_eval_and_prefill_steps_within_tolerance_of_reference(smoke):
 
 def test_knobs_the_port_lacks_raise(smoke):
     """No fallback: every knob this slice does not port raises
-    ``NotImplementedError`` naming its ROADMAP item, a model with experts
+    ``NotImplementedError`` naming its ROADMAP item (``logits_pspec``:
+    item 6, ``distributed/sharding.py``), ``grad_reduce_mesh`` is a
+    process group whose misuse raises ``ValueError`` (a group without
+    ``grad_reduce``; an object that is no group), a model with experts
     builds a step, and a train step without a device asks for CUDA.  A
     decoder-only model ignores an encoder-decoder's inputs, as the
     reference does: ``enc_embeds`` in the loss's batch leaves the loss
@@ -317,10 +320,20 @@ def test_knobs_the_port_lacks_raise(smoke):
     _, _, tree = smoke
     tcfg = TC.get_smoke_config(ARCH)
     lr = TA.cosine_schedule(LR, 1, 5)
-    for kw, item in (({"grad_reduce_mesh": object()}, "item 5"),
-                     ({"logits_pspec": object()}, "item 5")):
+    for kw, item in (({"logits_pspec": object()}, "item 6"),):
         with pytest.raises(NotImplementedError, match=item):
             TS.make_train_step(tcfg, lr_fn=lr, device=CPU, **kw)
+    with pytest.raises(NotImplementedError, match="distributed/sharding"):
+        TM.loss_fn(_model(tree),
+                   {"tokens": torch.ones(1, 4, dtype=torch.int32)},
+                   logits_pspec=object())
+    from repro_torch.distributed import comm
+    with pytest.raises(ValueError, match="grad_reduce"):
+        TS.make_train_step(tcfg, lr_fn=lr, device=CPU, num_microbatches=2,
+                           grad_reduce_mesh=comm.init_group("gloo"))
+    with pytest.raises((TypeError, ValueError, RuntimeError, AttributeError)):
+        TS.make_train_step(tcfg, lr_fn=lr, device=CPU, num_microbatches=2,
+                           grad_reduce="exact", grad_reduce_mesh=object())
     # a model with experts trains (tests/test_torch_moe_train.py)
     assert callable(TS.make_train_step(TC.get_smoke_config("mixtral-8x22b"),
                                        lr_fn=lr, device=CPU))
@@ -345,7 +358,9 @@ def test_launch_train_smoke_on_the_cpu_and_flags_that_raise(tmp_path):
     """``python -m repro_torch.launch.train --smoke --device cpu``: two
     logged steps with a finite loss; with ``--ckpt-dir`` and
     ``--ckpt-every 1`` it saves step 1 and a second run resumes past it;
-    the compression and shard_map flags raise naming their ROADMAP item;
+    the compression and microbatch flags run the data-parallel step over
+    the environment's group (here one rank: this process), with finite
+    losses, and a world size other than the environment's raises;
     without ``--device`` it asks for CUDA."""
     out = io.StringIO()
     argv = ["--smoke", "--device", "cpu", "--steps", "2", "--batch", "4",
@@ -365,10 +380,19 @@ def test_launch_train_smoke_on_the_cpu_and_flags_that_raise(tmp_path):
     assert "[ckpt] saved step 1" in lines
     assert lines[-2:] == ["[restore] resumed from step 1 -> next 2",
                           "done: 0 steps"]
-    for flags, item in ((["--compress-bits", "8"], "item 5"),
-                        (["--microbatches", "2"], "item 5")):
-        with pytest.raises(NotImplementedError, match=item):
-            TL.main(["--smoke", "--device", "cpu", "--steps", "1"] + flags)
+    for flags in (["--compress-bits", "8"], ["--microbatches", "2"]):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            dp = TL.main(["--smoke", "--device", "cpu", "--steps", "2",
+                          "--batch", "4", "--seq", "16", "--log-every",
+                          "1"] + flags)
+        lines = out.getvalue().splitlines()
+        assert [ln.split()[:2] for ln in lines[:2]] == [["step", "0"],
+                                                        ["step", "1"]]
+        assert np.isfinite(dp)
+    with pytest.raises(ValueError, match="world-size"):
+        TL.main(["--smoke", "--device", "cpu", "--steps", "1",
+                 "--microbatches", "2", "--world-size", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TL.main(["--smoke", "--steps", "1"])
