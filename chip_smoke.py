@@ -36,6 +36,9 @@ Last, data parallelism across ranks of a process group on the one card:
 groups of 2, 4 and 1 fresh interpreters (gloo) reduce phase 5's stream
 through the sharded executor and train xlstm-125m whole through the
 elastic step, resumed from 2 ranks onto 4 and onto 1 bit for bit.
+Last, the paper's own circuit: the JugglePAC state machine as a batched
+scan (``repro_torch.core.circuit_scan``, one CUDA thread a circuit) at
+65,536 circuits x 16,384 cycles, and Table II searched on the card.
 All data is drawn from ``--seed``.  Phases, in order; any failure exits nonzero:
 
 1. device — the card's name and power limit, as nvidia-smi prints them;
@@ -130,7 +133,8 @@ All data is drawn from ``--seed``.  Phases, in order; any failure exits nonzero:
 13. accumulators — phase 8's stream (32,768 x 6,144, |x| < 2^5) pushed
    row by row on the card: ``LimbAccumulator`` at scale 2^24 bitwise
    K5's limbs in canonical form; ``Limb3Accumulator`` and
-   ``BinAccumulator`` bitwise their CPU runs, state and finalize;
+   ``BinAccumulator`` bitwise their CPU runs, state and finalize (each
+   CPU run in a fresh interpreter, pushing while the card does);
    ``KahanAccumulator`` and ``CascadeAccumulator(2)`` within their
    stated bounds of float64; each accumulator's ms (CUDA events);
 14. serve-moe — mixtral-8x22b's ``CONFIG`` at full width cut to 8 of 56
@@ -302,7 +306,41 @@ All data is drawn from ``--seed``.  Phases, in order; any failure exits nonzero:
    bitwise its plain version at the elastic step's shape (a leaf's 4
    microbatch rows, one label), timed beside ``index_add_``; K1 at the
    embedding's shape timed.  One card's SMs serve every rank: the times
-   are not a scaling result.
+   are not a scaling result;
+22. circuit — the JugglePAC kernel (``kernels/jugglepac_fsm.py``).
+   Check 1: bitwise its plain version on all four per-cycle outputs
+   (``res_v`` as int32 bits) at (L, R) in ``CIRCUIT_SHAPES``, B = 3 and
+   B = 1, ``CIRCUIT_CHECK_T`` cycles: Table I's sets, 20 sets of 5 (at
+   R = 2 the FIFO overflows and its count passes 4), idle gaps inside and
+   between sets, starts on invalid cycles, -0.0, +-Inf and NaN.  Check 2:
+   Table II on the card: every candidate circuit of
+   ``circuit.jugglepac_min_set_size`` (n in [2, 200] x t in {0, 1, 2},
+   12 sets of n + (7i + t) % 3 values i * 1000 + j) in one launch per
+   (L, R), T = the longest input + the Python run's guard; each
+   candidate's verdict the one the Python ``ok`` computes (the results up
+   to the cycle its run stops at: exactly 12, sets 0..11 in order, within
+   1e-6 of each sum, no overflow), the same binary search over them; the
+   minimum equal to the port's Python search at L = 14 and R in
+   ``CIRCUIT_REGS`` (the paper's 94, 29, 18 printed beside it, and the
+   count of failing n above the minimum), then at L in
+   ``CIRCUIT_SWEEP_L``; two of those launches bitwise the plain version
+   on their first ``CIRCUIT_PREFIX`` cycles.  Check 3:
+   ``circuit_scan.jugglepac_scan`` at ``CIRCUIT_B`` x ``CIRCUIT_T``, L =
+   14, R = 4 (launches counted, set to 0 just before): back-to-back sets
+   of lengths in [64, 512], integer values in [1, 49] as float32 (every
+   partial sum exact), sets starting while 8L + 32 + 512 cycles remain;
+   (a) the first ``CIRCUIT_PREFIX`` cycles of ``CIRCUIT_PREFIX``
+   circuits bitwise the plain version; (b) ``CIRCUIT_ORACLE`` circuits
+   whole equal to the Python ``JugglePAC.run`` (set, value, cycle,
+   overflow); (c) the share of circuits with every result present, in
+   order, equal to an int64 sum of its set and free of overflow, the
+   worst latency constant (latency - set length) beside Table II's DS +
+   110..113, and up to ``CIRCUIT_ORACLE`` flagged circuits re-run in the
+   Python oracle, whose verdict must agree; timings: the kernel's ms,
+   simulated cycles/s, its bound by bytes (16 B a circuit-cycle), the
+   plain version's ms on check (a)'s prefix, the oracle's us a cycle;
+   its kernel entry gives the circuit-cycles each time covers
+   (``cycles`` for ``ms``, ``plain_cycles`` for ``plain_ms``).
 
 Times are CUDA-event medians after a warm-up (plain versions: one
 host-clock run; K1 on the train path: the sum over a step's launches,
@@ -680,6 +718,31 @@ ELASTIC_ITEMS = (8, 768, 3072)
 LAUNCH_STEPS, LAUNCH_SEQ = 4, 64
 #: each rank's timeout, seconds
 RANK_TIMEOUT = 300
+#: the circuit phase (src/repro_torch/core/circuit_scan.py, the paper's
+#: Fig. 3 and Algorithms 1-2): check 1's (adder latency L, PIS registers
+#: R), from one slot and one register to the kernel's limit of 64 each,
+#: and its streams' length
+CIRCUIT_SHAPES = ((1, 1), (2, 4), (14, 2), (14, 4), (14, 8), (32, 16),
+                  (64, 64))
+CIRCUIT_CHECK_T = 2048
+#: Table II (paper: minimum set size 94, 29 and 18 at L = 14 and R = 2,
+#: 4, 8), searched on the card at R in CIRCUIT_REGS, then at each L of
+#: CIRCUIT_SWEEP_L; (L, R) of the sweep held to the plain version
+CIRCUIT_REGS = (2, 4, 8, 16)
+CIRCUIT_PAPER_MIN = {2: 94, 4: 29, 8: 18}
+CIRCUIT_SWEEP_L = (2, 4, 8, 14, 20, 32)
+CIRCUIT_SWEEP_PLAIN = ((2, 2), (32, 16))
+#: the real-size run: 65,536 circuits x 16,384 cycles at the paper's
+#: design point (L = 14 as the IP adder, R = 4), sets of [64, 512]
+#: values: 6 bytes in and 10 out a circuit-cycle, 17.2 GB on the card
+CIRCUIT_B, CIRCUIT_T, CIRCUIT_L, CIRCUIT_R = 65536, 16384, 14, 4
+CIRCUIT_SETS = (64, 512)
+#: check (a)'s prefix (cycles, and circuits of the real-size run), the
+#: circuits run whole in the Python oracle (check (b)) and the most of
+#: (c)'s flagged ones re-run there
+CIRCUIT_PREFIX, CIRCUIT_ORACLE = 4096, 16
+#: Table II's latency constant, DS + 110..113 (paper)
+CIRCUIT_PAPER_C = (110, 113)
 
 
 def fail(msg: str) -> int:
@@ -1989,8 +2052,10 @@ def reset_launches():
     from repro_torch.kernels import jugglepac_segsum as K
     fd = importlib.import_module("repro_torch.kernels.flash_decode")
     ia = importlib.import_module("repro_torch.kernels.intac_accum")
+    from repro_torch.kernels import jugglepac_fsm
     K.LAUNCHES = 0
     ia.LAUNCHES = 0
+    jugglepac_fsm.LAUNCHES = 0
     for mode in fd.LAUNCHES:
         fd.LAUNCHES[mode] = 0
 
@@ -2209,13 +2274,52 @@ def push_rows(acc, x):
         return st, a.elapsed_time(b)
 
 
+def accum_cpu_rank(group, path, name, scale, max_abs):
+    """One fresh interpreter of phase 13 (``spawn.run_ranks``, one rank):
+    ``name``'s pushes of the stream saved at ``path``, on the CPU ->
+    {"st": the state, "ms": host ms}."""
+    import torch
+    import repro_torch.reduce as R
+    x = torch.load(path, mmap=True, weights_only=True)
+    acc = (R.Limb3Accumulator(scale) if name == "Limb3Accumulator"
+           else R.BinAccumulator(max_abs))
+    st, ms = push_rows(acc, x)
+    return {"st": st, "ms": ms}
+
+
+def start_cpu_pushes(xc, names, scale, max_abs, tmp):
+    """Start ``accum_cpu_rank`` for each of ``names`` on ``xc`` (saved once
+    under ``tmp``), each in its own interpreter, waited on by a thread ->
+    (threads, results by name: the rank's return value or its error)."""
+    import threading
+    import torch
+    from repro_torch.distributed import spawn
+    path = Path(tmp) / "x.pt"
+    torch.save(xc, path)
+    results = {}
+
+    def run(name):
+        try:
+            results[name] = spawn.run_ranks(
+                "chip_smoke:accum_cpu_rank", 1, workdir=Path(tmp) / name,
+                kwargs={"path": str(path), "name": name, "scale": scale,
+                        "max_abs": max_abs},
+                threads=2, paths=[str(ROOT)], timeout=RANK_TIMEOUT)[0]
+        except Exception as e:                       # noqa: BLE001
+            results[name] = e
+
+    threads = [threading.Thread(target=run, args=(nm,)) for nm in names]
+    for th in threads:
+        th.start()
+    return threads, results
+
+
 def accum_phase(seed, dev, smi):
     """Phase 13: the streaming accumulators at the INTAC shape on the
     card, each row of the stream one push."""
+    import shutil
+    import tempfile
     import torch
-    import repro_torch.reduce as R
-    from repro_torch.core import intac as I
-    from repro_torch.kernels import ops
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 3)                 # phase 8's stream
@@ -2225,7 +2329,33 @@ def accum_phase(seed, dev, smi):
     x = (torch.randn((n, d), generator=gen, device=dev)
          * torch.exp2(mag.to(torch.float32))).clamp(-31.0, 31.0)
     del mag
-    xc = x.cpu()
+    # the CPU runs Limb3 and Bin are held to push while the card does:
+    # the host's two longest loops, each in a fresh interpreter
+    max_abs = float(x.abs().max())
+    tmp = tempfile.mkdtemp(prefix="accum_smoke_", dir=ROOT / "build")
+    threads = []
+    try:
+        threads, cpu_runs = start_cpu_pushes(
+            x.cpu(), ("Limb3Accumulator", "BinAccumulator"), scale, max_abs,
+            tmp)
+        accum_checks(x, scale, max_abs, threads, cpu_runs, smi)
+    finally:
+        for th in threads:
+            th.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    del x
+    torch.cuda.empty_cache()
+
+
+def accum_checks(x, scale, max_abs, threads, cpu_runs, smi):
+    """Phase 13's checks on the card's stream ``x``; ``cpu_runs`` fills
+    with the CPU runs as ``threads`` end."""
+    import torch
+    import repro_torch.reduce as R
+    from repro_torch.core import intac as I
+    from repro_torch.kernels import ops
+    n, d = x.shape
+    dev = x.device
     times = {}
 
     # LimbAccumulator against K5 under the same scale (no kernel of the
@@ -2247,13 +2377,17 @@ def accum_phase(seed, dev, smi):
           "accumulators: LimbAccumulator differs from K5")
 
     # Limb3Accumulator and BinAccumulator: bitwise their CPU run
-    max_abs = float(x.abs().max())
-    for name, acc in (("Limb3Accumulator", R.Limb3Accumulator(scale)),
-                      ("BinAccumulator", R.BinAccumulator(max_abs))):
+    for (name, acc), th in zip(
+            (("Limb3Accumulator", R.Limb3Accumulator(scale)),
+             ("BinAccumulator", R.BinAccumulator(max_abs))), threads):
         reset_launches()
         st, times[name] = push_rows(acc, x)
         counts = read_launches()
-        st_c, cpu_ms = push_rows(acc, xc)
+        th.join()
+        got = cpu_runs[name]
+        check(isinstance(got, dict), f"accumulators: {name}'s CPU run "
+                                     f"failed: {got}")
+        st_c, cpu_ms = got["st"], got["ms"]
         fields = list(st) if isinstance(st, tuple) else [st]
         fields_c = list(st_c) if isinstance(st_c, tuple) else [st_c]
         ok = all(torch.equal(a.cpu(), b) for a, b in zip(fields, fields_c)
@@ -2261,7 +2395,8 @@ def accum_phase(seed, dev, smi):
         fin_ok = torch.equal(acc.finalize(st).cpu(), acc.finalize(st_c))
         print(f"check {name}: card state {'bitwise' if ok else 'DIFFERS from'} "
               f"its CPU run, finalize {'bitwise' if fin_ok else 'DIFFERS'} "
-              f"(CPU {cpu_ms:.1f} ms on the host clock), kernel launches "
+              f"(CPU {cpu_ms:.1f} ms on the host clock, in a fresh "
+              f"interpreter beside the card's pushes), kernel launches "
               f"{counts}", flush=True)
         check(ok and fin_ok and sum(counts.values()) == 0,
               f"accumulators: {name} on the card differs from the CPU")
@@ -2301,8 +2436,7 @@ def accum_phase(seed, dev, smi):
         + f" for {n} pushes of ({d},) rows (CUDA events); peak memory of "
         f"the phase {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | "
         f"{smi}", flush=True)
-    del x, xc, x64, absum, s64, kahan, casc, w, c_ref
-    torch.cuda.empty_cache()
+    del x64, absum, s64, kahan, casc, w, c_ref
 
 
 def k1_entry(name, vals, ids, nseg, tier, smi, library=None, op="sum"):
@@ -5127,6 +5261,378 @@ def vlm_positions(n_before, n_after, grid, dev):
                       after[:, None].expand(-1, 3)])
 
 
+def fsm_bitwise(kern, plain) -> bool:
+    """The JugglePAC kernel's four outputs bitwise its plain version's
+    (``res_v`` as int32 bits: NaN included)."""
+    import torch
+    return (torch.equal(kern[0].view(torch.int32), plain[0].view(torch.int32))
+            and all(torch.equal(a, b) for a, b in zip(kern[1:], plain[1:])))
+
+
+def circuit_check_streams(seed, t):
+    """Check 1's three circuits of ``t`` cycles (numpy): row 0 Table I's
+    sets, 20 back-to-back sets of 5, then random sets; rows 1-2 random
+    sets; every row with idle gaps inside and between sets, starts on
+    invalid cycles, -0.0, +-Inf and NaN after its first 130 cycles."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    v = np.zeros((3, t), np.float32)
+    st = np.zeros((3, t), bool)
+    va = np.zeros((3, t), bool)
+    for r in range(3):
+        sets = ([[1, 2, 3, 4, 5], [10, 20, 30, 40],
+                 [100, 200, 300, 400, 500, 600, 700, 800, 900]]
+                + [list(rng.randint(1, 9, 5)) for _ in range(20)]
+                if r == 0 else [])
+        p = 0
+        for s in sets:
+            v[r, p:p + len(s)] = s
+            st[r, p] = True
+            va[r, p:p + len(s)] = True
+            p += len(s)
+        p += 4
+        while p < t - 600:      # 8L + 32 idle cycles drain L = 64
+            n = rng.randint(1, 90)
+            v[r, p:p + n] = rng.randint(-40, 40, n)
+            st[r, p] = True
+            va[r, p:p + n] = True
+            p += n + rng.randint(0, 6)
+        k = rng.rand(t)
+        k[:130] = 1.0
+        va[r] &= ~((k < 0.03) & ~st[r])                   # gaps in a set
+        st[r] |= ~va[r] & (rng.rand(t) < 0.05)            # starts ignored
+        v[r, (k >= 0.03) & (k < 0.08)] = -0.0
+        v[r, (k >= 0.08) & (k < 0.09)] = np.inf
+        v[r, (k >= 0.09) & (k < 0.10)] = -np.inf
+        v[r, (k >= 0.10) & (k < 0.11)] = np.nan
+    return v, st, va
+
+
+def table2_streams(lat):
+    """Every candidate circuit of ``jugglepac_min_set_size`` at adder
+    latency ``lat``: (values, starts, valids) as (597, T) numpy arrays and
+    per row (n, t, n_in, guard, sums), T the longest input + its guard."""
+    import numpy as np
+    metas, rows = [], []
+    for n in range(2, 201):
+        for t in range(3):
+            sizes = [n + ((7 * i + t) % 3) for i in range(12)]
+            sets = [np.arange(sz, dtype=np.float64) + i * 1000
+                    for i, sz in enumerate(sizes)]
+            rows.append(sets)
+            metas.append((n, t, sum(sizes),
+                          4 * lat + 16 + max(sizes) + 10000,
+                          [float(s.sum()) for s in sets]))
+    tt = max(m[2] + m[3] for m in metas)
+    v = np.zeros((len(rows), tt), np.float32)
+    st = np.zeros((len(rows), tt), bool)
+    va = np.zeros((len(rows), tt), bool)
+    for r, sets in enumerate(rows):
+        p = 0
+        for s in sets:
+            v[r, p:p + len(s)] = s
+            st[r, p] = True
+            va[r, p:p + len(s)] = True
+            p += len(s)
+    return v, st, va, metas
+
+
+def table2_verdicts(outs, metas):
+    """Each candidate's verdict as the Python ``ok`` computes it: its run
+    stops after the inputs if 12 results are out by then, else at the
+    12th result (or after the guard); the results by then must be
+    exactly 12, sets 0..11 in order, each within 1e-6 of its sum, and no
+    cycle up to there may overflow."""
+    import numpy as np
+    res_v, res_set, res_en, ovf = (o.cpu().numpy() for o in outs)
+    verdicts = {}
+    for row, (n, t, n_in, guard, sums) in enumerate(metas):
+        cyc = np.flatnonzero(res_en[row])
+        if (cyc < n_in).sum() >= 12:
+            got, stop = cyc[cyc < n_in], n_in - 1
+        elif cyc.size >= 12 and cyc[11] < n_in + guard:
+            got, stop = cyc[:12], cyc[11]
+        else:
+            got, stop = cyc[:0], n_in + guard - 1
+        ok = got.size == 12 and not ovf[row, :stop + 1].any()
+        for i, c in enumerate(got if ok else ()):
+            ok = ok and res_set[row, c] == i and abs(
+                float(res_v[row, c]) - sums[i]) <= 1e-6 * abs(sums[i])
+        verdicts[(n, t)] = bool(ok)
+    return verdicts
+
+
+def min_from_verdicts(verdicts, probe_max=200):
+    """``jugglepac_min_set_size``'s binary search over the card's
+    verdicts; and the n above the minimum (up to probe_max) that fail."""
+    def ok(n):
+        return all(verdicts[(n, t)] for t in range(3))
+    lo, hi = 2, probe_max
+    if not ok(hi):
+        return probe_max + 1, []
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if ok(mid):
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo, [n for n in range(lo + 1, probe_max + 1) if not ok(n)]
+
+
+def circuit_real_streams(seed, b, t, lat, dev):
+    """Check 3's (b, t) streams on the card: back-to-back sets with
+    lengths uniform in ``CIRCUIT_SETS``, a set starting while 8L + 32 +
+    512 cycles remain, idle after; values integers in [1, 49] as float32.
+    Also each set's start and length (b, S) int64, how many sets each
+    circuit holds, and the sets' int64 sums (b, S)."""
+    import torch
+    lo, hi = CIRCUIT_SETS
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    cap = t // lo + 1
+    lengths = torch.randint(lo, hi + 1, (b, cap), generator=g, device=dev)
+    first = torch.cumsum(lengths, 1) - lengths
+    keep = first <= t - (8 * lat + 32 + hi)
+    nsets = keep.sum(1)
+    lengths = torch.where(keep, lengths, torch.zeros_like(lengths))
+    end = (first + lengths).gather(1, (nsets - 1)[:, None])[:, 0]
+    pos = torch.arange(t, device=dev)
+    valids = pos[None, :] < end[:, None]
+    starts = torch.zeros((b, t), dtype=torch.bool, device=dev)
+    rows = torch.arange(b, device=dev)[:, None].expand(b, cap)
+    starts[rows[keep], first[keep]] = True
+    values = torch.empty((b, t), dtype=torch.float32, device=dev)
+    sums = torch.zeros((b, cap), dtype=torch.int64, device=dev)
+    step = 4096
+    for r0 in range(0, b, step):
+        r1 = min(b, r0 + step)
+        x = torch.randint(1, 50, (r1 - r0, t), generator=g, device=dev,
+                          dtype=torch.int32)
+        x = torch.where(valids[r0:r1], x, torch.zeros_like(x))
+        values[r0:r1] = x.to(torch.float32)
+        c = torch.cumsum(x, 1, dtype=torch.int64)
+        c = torch.cat([torch.zeros_like(c[:, :1]), c], 1)
+        f, n = first[r0:r1].clamp(max=t), lengths[r0:r1]
+        sums[r0:r1] = torch.where(keep[r0:r1], c.gather(1, (f + n).clamp(
+            max=t)) - c.gather(1, f), torch.zeros_like(f))
+    return values, starts, valids, first, lengths, nsets, sums
+
+
+def circuit_flags(outs, first, lengths, nsets, sums):
+    """Check (c) on the card, a chunk of circuits at a time: each
+    circuit's results all present (as many as its sets), in order, equal
+    to its sets' int64 sums, no cycle overflowing; and the worst latency
+    constant (result cycle - first input cycle - set length) over the
+    results that are in order."""
+    import torch
+    res_v, res_set, res_en, ovf = outs
+    b, t = res_en.shape
+    good = torch.empty(b, dtype=torch.bool, device=res_en.device)
+    worst = -(1 << 30)
+    pos = torch.arange(t, device=res_en.device)
+    for r0 in range(0, b, 4096):
+        r1 = min(b, r0 + 4096)
+        en = res_en[r0:r1]
+        k = torch.cumsum(en, 1, dtype=torch.int32) - 1
+        kk = k.clamp(0, sums.shape[1] - 1).long()
+        want = sums[r0:r1].gather(1, kk)
+        right = (res_set[r0:r1] == k) & (
+            res_v[r0:r1].double() == want.double())
+        good[r0:r1] = ((right | ~en).all(1)
+                       & (en.sum(1) == nsets[r0:r1])
+                       & ~ovf[r0:r1].any(1))
+        const = pos[None, :] - first[r0:r1].gather(1, kk) \
+            - lengths[r0:r1].gather(1, kk)
+        const = torch.where(en & right, const, torch.full_like(const,
+                                                              -(1 << 30)))
+        worst = max(worst, int(const.max()))
+        del en, k, kk, want, right, const
+    return good, worst
+
+
+def oracle_run(vals, first, lengths, nsets, lat, regs):
+    """One circuit of check 3 (its values (T,), each set's first cycle and
+    length, and how many sets it holds) through the Python
+    ``JugglePAC.run`` -> ([(set, value, cycle)], whether a push
+    overflowed, the cycles it ran, its host seconds)."""
+    from repro_torch.core import circuit
+    f, n, vals = first.tolist(), lengths.tolist(), vals.tolist()
+    sets = [vals[f[i]:f[i] + n[i]] for i in range(int(nsets))]
+    pac = circuit.JugglePAC(lat, regs)
+    t0 = time.perf_counter()
+    res = [(x.set_index, x.value, x.cycle) for x in pac.run(sets)]
+    return (res, pac.fifo_overflows > 0, pac.cycle,
+            time.perf_counter() - t0)
+
+
+def circuit_phase(seed, dev, smi):
+    """Phase 22; returns the JugglePAC kernel's entry."""
+    import numpy as np
+    import torch
+    from repro_torch.core import circuit, circuit_scan
+    from repro_torch.kernels import jugglepac_fsm as fsm
+    t0 = time.perf_counter()
+
+    # check 1: the kernel bitwise its plain version, B = 3 and B = 1
+    v, st, va = (torch.tensor(x, device=dev)
+                 for x in circuit_check_streams(seed + 22, CIRCUIT_CHECK_T))
+    for lat, regs in CIRCUIT_SHAPES:
+        kern = fsm.jugglepac_fsm_cuda(v, st, va, latency=lat,
+                                      num_registers=regs)
+        one = fsm.jugglepac_fsm_cuda(v[:1].contiguous(), st[:1].contiguous(),
+                                     va[:1].contiguous(), latency=lat,
+                                     num_registers=regs)
+        plain = fsm.jugglepac_fsm_torch(v, st, va, latency=lat,
+                                        num_registers=regs)
+        torch.cuda.synchronize()
+        ok = fsm_bitwise(kern, plain) and fsm_bitwise(
+            one, tuple(p[:1] for p in plain))
+        print(f"circuit check L={lat} R={regs} B=3 and B=1 x T="
+              f"{CIRCUIT_CHECK_T}: results {int(kern[2].sum())}, overflow "
+              f"cycles {int(kern[3].sum())} (row 0: {int(kern[3][0].sum())}"
+              f"), NaN results {int((kern[2] & kern[0].isnan()).sum())}; "
+              f"kernel vs plain {'bitwise' if ok else 'DIFFER'}",
+              flush=True)
+        check(ok, f"JugglePAC kernel differs from its plain version at "
+                  f"L={lat} R={regs}")
+        if (lat, regs) == (14, 2):
+            check(bool(kern[3][0].any()), "20 sets of 5 at R=2 did not "
+                                          "overflow the FIFO")
+    print(f"circuit check 1: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # check 2: Table II on the card, then the sweep over L
+    t1 = time.perf_counter()
+    mins = {}
+    for lat in sorted(set(CIRCUIT_SWEEP_L) | {14}):
+        v, st, va, metas = table2_streams(lat)
+        v, st, va = (torch.tensor(x, device=dev) for x in (v, st, va))
+        for regs in CIRCUIT_REGS:
+            outs = fsm.jugglepac_fsm_cuda(v, st, va, latency=lat,
+                                          num_registers=regs)
+            verdicts = table2_verdicts(outs, metas)
+            card, unclean = min_from_verdicts(verdicts)
+            host = circuit.jugglepac_min_set_size(lat, regs)
+            mins[(lat, regs)] = card
+            held = ""
+            if (lat, regs) in CIRCUIT_SWEEP_PLAIN:
+                p = CIRCUIT_PREFIX
+                plain = fsm.jugglepac_fsm_torch(
+                    v[:, :p], st[:, :p], va[:, :p], latency=lat,
+                    num_registers=regs)
+                ok = fsm_bitwise(tuple(o[:, :p].contiguous() for o in outs),
+                                 plain)
+                held = (f"; first {p} cycles vs plain "
+                        f"{'bitwise' if ok else 'DIFFER'}")
+                check(ok, f"Table II launch L={lat} R={regs} differs from "
+                          "the plain version")
+            if lat == 14:
+                print(f"table2 L=14 R={regs}: min set size on the card "
+                      f"{card}, Python search {host}, paper "
+                      f"{CIRCUIT_PAPER_MIN.get(regs, 'n/a')}; failing n "
+                      f"above the minimum: {len(unclean)} {unclean[:8]}; "
+                      f"B={v.shape[0]} T={v.shape[1]}{held}", flush=True)
+            elif held:
+                print(f"table2 L={lat} R={regs}: B={v.shape[0]} "
+                      f"T={v.shape[1]}{held}", flush=True)
+            check(card == host, f"Table II at L={lat} R={regs}: the card's "
+                                f"{card} against Python's {host}")
+            del outs
+        del v, st, va
+    print("table2 sweep, min set size (card = Python search): "
+          + "; ".join(f"L={lat}: " + " ".join(
+              f"R{r}={mins[(lat, r)]}" for r in CIRCUIT_REGS)
+              for lat in CIRCUIT_SWEEP_L), flush=True)
+    print(f"circuit check 2: {time.perf_counter() - t1:.1f} s", flush=True)
+
+    # check 3: the real-size run through the entry point
+    t2 = time.perf_counter()
+    b, t, lat, regs = CIRCUIT_B, CIRCUIT_T, CIRCUIT_L, CIRCUIT_R
+    values, starts, valids, first, lengths, nsets, sums = \
+        circuit_real_streams(seed + 23, b, t, lat, dev)
+    torch.cuda.synchronize()
+    print(f"circuit run: B={b} T={t} L={lat} R={regs}, sets "
+          f"{int(nsets.sum())} ({int(nsets.min())}-{int(nsets.max())} a "
+          f"circuit), data {time.perf_counter() - t2:.1f} s", flush=True)
+    reset_launches()
+    outs = circuit_scan.jugglepac_scan(values, starts, valids, latency=lat,
+                                       num_registers=regs)
+    torch.cuda.synchronize()
+    launches = fsm.LAUNCHES
+    others = read_launches()
+    check(launches == 1 and not any(others.values()),
+          f"jugglepac_scan: expected one kernel launch and no other, got "
+          f"{launches} and {others}")
+    # (a) a prefix of the run is the run of the prefix
+    p = CIRCUIT_PREFIX
+    pre = tuple(x[:p, :p].contiguous() for x in (values, starts, valids))
+    plain_ms, plain = host_ms(lambda: fsm.jugglepac_fsm_torch(
+        *pre, latency=lat, num_registers=regs))
+    ok_a = fsm_bitwise(tuple(o[:p, :p].contiguous() for o in outs), plain)
+    print(f"circuit (a): first {p} cycles of {p} circuits vs plain "
+          f"{'bitwise' if ok_a else 'DIFFER'}", flush=True)
+    check(ok_a, "the real-size run differs from the plain version")
+    del plain, pre
+    # (b) whole circuits against the Python JugglePAC.run
+    host_s, host_cycles = 0.0, 0
+    ok_b = True
+    cpu = [x[:CIRCUIT_ORACLE].cpu() for x in
+           (values, first, lengths, nsets) + tuple(outs)]
+    for r in range(CIRCUIT_ORACLE):
+        vals, f, n, ns, rv, rs, re, of = (x[r] for x in cpu)
+        py, py_ovf, cycles, secs = oracle_run(vals, f, n, ns, lat, regs)
+        host_s += secs
+        host_cycles += cycles
+        cyc = torch.nonzero(re)[:, 0].tolist()
+        card = [(int(rs[c]), float(rv[c]), c) for c in cyc]
+        ok_b = ok_b and card == py and bool(of.any()) == py_ovf
+    oracle_us = host_s / host_cycles * 1e6
+    print(f"circuit (b): {CIRCUIT_ORACLE} circuits whole vs Python "
+          f"JugglePAC.run {'identical' if ok_b else 'DIFFER'} "
+          f"({host_cycles} cycles, {oracle_us:.3f} us a cycle on the host)",
+          flush=True)
+    check(ok_b, "the card's circuits differ from the Python oracle")
+    del cpu
+    # (c) every circuit: results present, in order, exact, no overflow
+    good, worst = circuit_flags(outs, first, lengths, nsets, sums)
+    share = float(good.float().mean())
+    flagged = torch.nonzero(~good)[:, 0].tolist()
+    agree = True
+    for r in flagged[:CIRCUIT_ORACLE]:
+        py, py_ovf, _, _ = oracle_run(
+            *(x[r].cpu() for x in (values, first, lengths, nsets)), lat,
+            regs)
+        want = [(i, float(x)) for i, x in
+                enumerate(sums[r, :int(nsets[r])].tolist())]
+        agree = agree and (py_ovf or [x[:2] for x in py] != want)
+    print(f"circuit (c): {share:.6f} of {b} circuits all present, in order, "
+          f"exact and free of overflow ({len(flagged)} flagged; the oracle "
+          f"{'agrees' if agree else 'DISAGREES'} on "
+          f"{min(len(flagged), CIRCUIT_ORACLE)} re-run); worst latency "
+          f"constant {worst} (Table II: DS + {CIRCUIT_PAPER_C[0]}.."
+          f"{CIRCUIT_PAPER_C[1]})", flush=True)
+    check(agree, "a flagged circuit passes in the Python oracle")
+    # timings
+    kern_ms = cuda_ms(lambda: fsm.jugglepac_fsm_cuda(
+        values, starts, valids, latency=lat, num_registers=regs), REPS)
+    bytes_ = 16 * b * t
+    bound_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    print(f"time circuit: kernel {kern_ms:.3f} ms for {b} x {t} "
+          f"circuit-cycles ({b * t / kern_ms * 1e3:.4g} cycles/s) | bound "
+          f"{bound_ms:.3f} ms ({bytes_ / 1e9:.3f} GB) | plain "
+          f"{plain_ms:.1f} ms on {p} x {p} | Python oracle "
+          f"{oracle_us:.3f} us a cycle | library n/a | {smi}", flush=True)
+    print(f"circuit check 3: {time.perf_counter() - t2:.1f} s; phase 22 "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del values, starts, valids, outs, first, lengths, sums
+    torch.cuda.empty_cache()
+    return {"name": "jugglepac_fsm_kernel", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/jugglepac_fsm.cu",
+            "replaces": "src/repro/core/circuit_jax.py:67",
+            "launches": launches, "max_abs_err": 0.0, "ms": kern_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None, "cycles": b * t, "plain_cycles": p * p}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5447,6 +5953,9 @@ def main(argv=None) -> int:
           flush=True)
     kernels += train_elastic_phase(args.seed, dev, smi)
     print(f"elapsed after phase 21: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    kernels.append(circuit_phase(args.seed, dev, smi))
+    print(f"elapsed after phase 22: {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)

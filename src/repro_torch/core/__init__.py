@@ -1,8 +1,19 @@
-"""Numerics shared by the accuracy policies (``intac``), the segment-id
-utilities (``segmented``), the fixed pairing trees (``trees``) and the
-gradient juggler (``juggler``), exported under the reference's names."""
+"""The paper's circuits and the numerics built from them, exported under
+the reference's names.
 
-from . import intac, juggler, segmented, trees  # noqa: F401
+Faithful layer:
+  circuit.JugglePAC / circuit.INTAC      cycle-accurate simulators (plain
+                                         Python)
+  circuit_scan.jugglepac_scan            the same FSM as a batched scan
+                                         (a hand-written kernel on the card)
+
+Production layer: the numerics shared by the accuracy policies
+(``intac``), the segment-id utilities (``segmented``), the fixed pairing
+trees (``trees``) and the gradient juggler (``juggler``)."""
+
+from . import (circuit, circuit_scan, intac, juggler,  # noqa: F401
+               segmented, trees)
+from .circuit import INTAC, JugglePAC, jugglepac_min_set_size  # noqa: F401
 from .intac import (Limb3State, LimbState, bin_psum,  # noqa: F401
                     compressed_psum_mean, compressed_psum_mean_tree,
                     intac_psum, intac_psum2, intac_psum3, intac_sum,

@@ -8,6 +8,10 @@
     their plain versions and the counters ``LAUNCHES[mode]``;
   * ``intac_accum`` (module) — K5, exact fixed-point column sums
     (``csrc/intac_accum.cu``), its plain version and ``LAUNCHES``;
+  * ``jugglepac_fsm`` — the JugglePAC state machine, one CUDA thread a
+    circuit (``csrc/jugglepac_fsm.cu``; the counterpart of the reference's
+    ``lax.scan`` in ``core/circuit_jax.py``, not of a TPU kernel), its
+    plain version and ``LAUNCHES``; ``core.circuit_scan`` calls it;
   * ``ops``     — the public wrappers ``segment_sum``, ``intac_accum``,
     ``flash_decode`` and ``flash_decode_paged`` (exported here; they
     shadow the two module names as attributes of this package, so reach

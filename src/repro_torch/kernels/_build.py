@@ -25,7 +25,7 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("segsum", "flash_decode", "intac_accum")
+SOURCES = ("segsum", "flash_decode", "intac_accum", "jugglepac_fsm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -59,6 +59,10 @@ _SIGNATURES = {
     },
     "intac_accum": {
         "intac_accum_launch": [_P, _F, _P, _L, _C, _C, _P],
+    },
+    "jugglepac_fsm": {
+        "jugglepac_fsm_launch": [_P, _P, _P, _P, _P, _P, _P, _L, _L, _C,
+                                 _C, _P],
     },
 }
 

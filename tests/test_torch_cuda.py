@@ -997,3 +997,68 @@ def test_cuda_elastic_resume_from_two_ranks_onto_four_bitwise(cuda,
         assert torch.equal(four[0]["last"][k], v), k
     for a, b in zip(four[0]["losses"], two[0]["losses"][2:]):
         assert torch.equal(a, b)
+
+
+def _fsm_streams(seed, b, t):
+    """B circuits of T cycles: random sets with idle gaps, ignored
+    starts, -0.0, +-Inf and NaN; circuit 0 holds 20 back-to-back sets
+    of 5 (at R = 2 the FIFO overflows and its count passes 4)."""
+    rng = np.random.RandomState(seed)
+    v = rng.randint(-40, 40, (b, t)).astype(np.float32)
+    st = rng.rand(b, t) < 0.06
+    va = rng.rand(b, t) < 0.9
+    k = rng.rand(b, t)
+    v[k < 0.05] = -0.0
+    v[(k >= 0.05) & (k < 0.06)] = np.inf
+    v[(k >= 0.06) & (k < 0.07)] = -np.inf
+    v[(k >= 0.07) & (k < 0.08)] = np.nan
+    v[0], st[0], va[0] = 1.0, False, False
+    st[0, 0:100:5], va[0, :100] = True, True
+    return v, st, va
+
+
+@pytest.mark.cuda
+def test_cuda_jugglepac_fsm_bitwise_plain_on_overflowing_batch(cuda):
+    """The JugglePAC kernel against its plain version on the card: all
+    four per-cycle outputs bitwise (``res_v`` as int32 bits), at B = 67
+    circuits (two CUDA blocks, the second ragged) and T = 301 cycles
+    (ten tiles, the last ragged), at three (L, R)."""
+    from repro_torch.kernels import jugglepac_fsm as fsm
+    v, st, va = (torch.tensor(x, device=cuda)
+                 for x in _fsm_streams(31, 67, 301))
+    for lat, regs in ((14, 2), (2, 4), (1, 1)):
+        before = fsm.LAUNCHES
+        kern = fsm.jugglepac_fsm_cuda(v, st, va, latency=lat,
+                                      num_registers=regs)
+        torch.cuda.synchronize()
+        assert fsm.LAUNCHES == before + 1
+        plain = fsm.jugglepac_fsm_torch(v, st, va, latency=lat,
+                                        num_registers=regs)
+        assert torch.equal(kern[0].view(torch.int32),
+                           plain[0].view(torch.int32))
+        for a, b in zip(kern[1:], plain[1:]):
+            assert torch.equal(a, b)
+        if lat == 14:
+            assert kern[3][0].sum() > 1
+    with pytest.raises(ValueError, match="<= 64"):
+        fsm.jugglepac_fsm_cuda(v, st, va, latency=65)
+    with pytest.raises(ValueError, match="float32"):
+        fsm.jugglepac_fsm_cuda(v.double(), st, va)
+
+
+@pytest.mark.cuda
+def test_cuda_run_sets_launches_the_kernel_once_and_equals_python(cuda):
+    """``circuit_scan.run_sets(device=None)`` runs on the card through one
+    kernel launch and gives the Python ``JugglePAC.run``'s results."""
+    import random
+    from repro_torch.core import circuit, circuit_scan
+    from repro_torch.kernels import jugglepac_fsm as fsm
+    rng = random.Random(5)
+    sets = [[float(rng.randrange(1, 50))
+             for _ in range(rng.randrange(30, 120))] for _ in range(12)]
+    before = fsm.LAUNCHES
+    got, ovf = circuit_scan.run_sets(sets, latency=14, num_registers=4)
+    assert fsm.LAUNCHES == before + 1 and not ovf
+    pac = circuit.JugglePAC(14, 4)
+    assert got == [(r.set_index, r.value, r.cycle) for r in pac.run(sets)]
+    assert pac.fifo_overflows == 0 and len(got) == 12
