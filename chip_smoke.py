@@ -114,8 +114,9 @@ All data is drawn from ``--seed``.  Phases, in order; any failure exits nonzero:
    ``grad_reduce`` stream (4 x 276,824,064, B = 1) and ``global_norm``
    stream (270,336 x 1,024, B = 512), bitwise their plain versions and
    timed beside ``torch.sum(0)`` in f32; timings: ms per juggler and
-   exact step, tokens/s, peak memory, and K1's and the domain
-   preparation's ms inside an exact step;
+   exact step, tokens/s, peak memory, K1's and the domain
+   preparation's ms inside an exact step, and each integer tier's K1
+   launches beside ``torch.sum`` of their int32 domains;
 12. checkpoint — the same ``CONFIG`` cut to 4 layers (the embedding and
    head leaves full width; weights from the seed) after one
    juggler step: the train state (12 bf16 parameter leaves, 24 f32
@@ -338,9 +339,12 @@ All data is drawn from ``--seed``.  Phases, in order; any failure exits nonzero:
    110..113, and up to ``CIRCUIT_ORACLE`` flagged circuits re-run in the
    Python oracle, whose verdict must agree; timings: the kernel's ms,
    simulated cycles/s, its bound by bytes (16 B a circuit-cycle), the
-   plain version's ms on check (a)'s prefix, the oracle's us a cycle;
-   its kernel entry gives the circuit-cycles each time covers
-   (``cycles`` for ``ms``, ``plain_cycles`` for ``plain_ms``).
+   plain version's ms on check (a)'s prefix, the oracle's us a cycle,
+   the blocks an SM holds at L = 14, R = 4 (the occupancy calculator),
+   the waves the run takes, and the kernel's ptxas line (registers,
+   stack frame, spills); its kernel entry gives the circuit-cycles each
+   time covers (``cycles`` for ``ms``, ``plain_cycles`` for
+   ``plain_ms``).
 
 Times are CUDA-event medians after a warm-up (plain versions: one
 host-clock run; K1 on the train path: the sum over a step's launches,
@@ -1565,8 +1569,9 @@ class K1Probe:
     preparation bracketed by CUDA events (``k1_ms``, ``prep_ms`` sum them
     after a synchronize).  With ``measure``, each launch is also run
     alone: timed (``cuda_ms``), its plain version run once on the same
-    inputs (host clock) and held bitwise, and for an unsegmented ``exact``
-    stream ``torch.sum`` over the rows timed (the same int32 column sums);
+    inputs (host clock) and held bitwise, and for an unsegmented stream of
+    an integer tier ``torch.sum`` over the rows of its int32 domain timed
+    (the same int32 column sums);
     the probe's own launches are taken off K1's count."""
 
     def __init__(self, measure: bool = False):
@@ -1636,7 +1641,7 @@ class K1Probe:
         ok, err = same(tuple(out), tuple(plain))
         del plain
         lib_ms = None
-        if pol.name == "exact" and num_segments == 1:
+        if pol.name in INT_TIERS and num_segments == 1:
             lib_ms = cuda_ms(lambda: values.sum(0, dtype=torch.int32), REPS)
         kept = int(((ids >= 0) & (ids < num_segments)).sum())
         self.records.append({
@@ -2035,7 +2040,8 @@ def train_phase(seed, dev, smi):
               f"{loss:.4f}, K1 launches {launches}, each of a step's "
               f"{len(probe.records)} bitwise its plain version; K1 "
               f"{entry['ms']:.3f} ms a step (bound {entry['bound_ms']:.3f}, "
-              f"plain {entry['plain_ms']:.1f}); peak memory of the check "
+              f"plain {entry['plain_ms']:.1f}, torch.sum "
+              f"{entry['library_ms']}); peak memory of the check "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | "
               f"{smi}", flush=True)
         entries.append(entry)
@@ -5470,6 +5476,7 @@ def circuit_phase(seed, dev, smi):
     import numpy as np
     import torch
     from repro_torch.core import circuit, circuit_scan
+    from repro_torch.kernels import _build
     from repro_torch.kernels import jugglepac_fsm as fsm
     t0 = time.perf_counter()
 
@@ -5611,16 +5618,29 @@ def circuit_phase(seed, dev, smi):
           f"constant {worst} (Table II: DS + {CIRCUIT_PAPER_C[0]}.."
           f"{CIRCUIT_PAPER_C[1]})", flush=True)
     check(agree, "a flagged circuit passes in the Python oracle")
-    # timings
+    # timings, and what the compiler and the occupancy calculator say
     kern_ms = cuda_ms(lambda: fsm.jugglepac_fsm_cuda(
         values, starts, valids, latency=lat, num_registers=regs), REPS)
     bytes_ = 16 * b * t
     bound_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    blocks = fsm.blocks_per_sm(lat, regs)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    waves = -(-(-(-b // fsm.THREADS)) // (blocks * sms))
+    ptx = [k for k in _build.ptxas_kernels(
+        _build.BUILD_LOG.get("jugglepac_fsm", {}).get("report", ""))
+        if "jugglepac_fsm_kernel" in k["name"]]
     print(f"time circuit: kernel {kern_ms:.3f} ms for {b} x {t} "
           f"circuit-cycles ({b * t / kern_ms * 1e3:.4g} cycles/s) | bound "
           f"{bound_ms:.3f} ms ({bytes_ / 1e9:.3f} GB) | plain "
           f"{plain_ms:.1f} ms on {p} x {p} | Python oracle "
-          f"{oracle_us:.3f} us a cycle | library n/a | {smi}", flush=True)
+          f"{oracle_us:.3f} us a cycle | library n/a | {blocks} blocks of "
+          f"{fsm.THREADS} circuits an SM at L={lat} R={regs} "
+          f"({fsm.smem_bytes(lat, regs)} B shared a block), {waves} "
+          f"wave(s) of {b} circuits on {sms} SMs | ptxas: "
+          + ("; ".join(f"{k['registers']} registers, {k.get('stack')} B "
+                       f"stack, spills {k.get('spill_stores')}/"
+                       f"{k.get('spill_loads')} B" for k in ptx)
+             or "no report (a cached build)") + f" | {smi}", flush=True)
     print(f"circuit check 3: {time.perf_counter() - t2:.1f} s; phase 22 "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     del values, starts, valids, outs, first, lengths, sums

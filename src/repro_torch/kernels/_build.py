@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -62,9 +63,37 @@ _SIGNATURES = {
     },
     "jugglepac_fsm": {
         "jugglepac_fsm_launch": [_P, _P, _P, _P, _P, _P, _P, _L, _L, _C,
-                                 _C, _P],
+                                 _C, _L, _P],
+        "jugglepac_fsm_blocks_per_sm": [_C, _C, _L, _P],
     },
 }
+
+
+def ptxas_kernels(report: str) -> list:
+    """Each kernel entry in a ptxas ``-v`` report: {"name" (mangled),
+    "registers", "stack", "spill_stores", "spill_loads", "smem" (static
+    shared bytes)}, in the report's order."""
+    out, props = [], {}
+    name = None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name, props = m.group(1), {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            props = {"stack": int(m.group(1)),
+                     "spill_stores": int(m.group(2)),
+                     "spill_loads": int(m.group(3))}
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            sm = re.search(r"(\d+) bytes smem", line)
+            out.append({"name": name, "registers": int(m.group(1)),
+                        **props, "smem": int(sm.group(1)) if sm else 0})
+            name = None
+    return out
 
 
 def build_dir() -> Path:

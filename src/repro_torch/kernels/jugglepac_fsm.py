@@ -5,7 +5,9 @@ Not a TPU kernel's port: the Hopper counterpart of the reference's
 under ``jax.vmap``, the batch of circuits as the leading dimension.  A
 loop over cycles in PyTorch would launch some 60 small operations a
 simulated cycle; the kernel (``csrc/jugglepac_fsm.cu``) runs the whole
-scan of every circuit in one launch.
+scan of every circuit in one launch, ``THREADS`` circuits a CUDA block,
+each circuit's pipeline and registers in the block's shared memory
+(``smem_bytes``).
 
 In: values (B, T) float32, starts and valids (B, T) bool.  Out, one
 entry a cycle: res_v (B, T) float32, res_set (B, T) int32, res_en (B, T)
@@ -17,7 +19,10 @@ bool, overflow (B, T) bool.
     num_registers <= ``MAX_REGISTERS`` (the paper's design point is
     L = 14, R <= 8); outside these it raises;
   * ``jugglepac_fsm_torch`` is its plain PyTorch version: ``step`` of
-    ``core/circuit_scan.py`` cycle by cycle, any float dtype.
+    ``core/circuit_scan.py`` cycle by cycle, any float dtype;
+  * ``smem_bytes(latency, num_registers)`` is a block's shared memory,
+    which the wrapper passes to the launch, and ``blocks_per_sm`` the
+    blocks one SM holds (the occupancy calculator, on the card).
 
 Adds are IEEE round-to-nearest in both (the kernel is built with
 ``--fmad=false``), so the two agree to the bit on every cycle, including
@@ -31,16 +36,55 @@ import torch
 
 #: launches of the kernel, counted by ``jugglepac_fsm_cuda``
 LAUNCHES = 0
-#: the kernel's limits: its per-circuit arrays hold 64 pipeline slots
-#: and 64 PIS registers
+#: the kernel's limits: at most 64 pipeline slots and 64 PIS registers
 MAX_LATENCY = 64
 MAX_REGISTERS = 64
+#: circuits a CUDA block and cycles a staged tile, as in the source
+THREADS = 128
+CHUNK = 32
+
+
+def smem_bytes(latency: int, num_registers: int) -> int:
+    """Dynamic shared memory of one CUDA block at (L, R), as
+    ``csrc/jugglepac_fsm.cu`` lays it out, per circuit: the pipeline
+    ring (8 B a slot), the registers' value and owner (8 B) and timeout
+    cycle (4 B), the value and set tiles (4 B each a cycle of CHUNK) and
+    the timeout ring (a byte a cycle of L + 3).  The launch refuses any
+    other size."""
+    lat, regs = latency, num_registers
+    return THREADS * (8 * lat + 12 * regs + 8 * CHUNK + lat + 3)
+
+
+def blocks_per_sm(latency: int = 14, num_registers: int = 4) -> int:
+    """Blocks of ``THREADS`` circuits one SM of the current CUDA device
+    holds at (L, R), from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    (registers, shared memory and threads together)."""
+    import ctypes
+    from . import _build
+    _check_shape(latency, num_registers)
+    _check_limits(latency, num_registers)
+    out = ctypes.c_int(0)
+    rc = _build.load("jugglepac_fsm").jugglepac_fsm_blocks_per_sm(
+        latency, num_registers, smem_bytes(latency, num_registers),
+        ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"jugglepac_fsm occupancy query failed: CUDA "
+                           f"error {rc}")
+    return out.value
 
 
 def _check_shape(latency, num_registers):
     if not (1 <= latency and 1 <= num_registers):
         raise ValueError("jugglepac_fsm: latency and num_registers must be "
                          f"positive; got {latency}, {num_registers}")
+
+
+def _check_limits(latency, num_registers):
+    if latency > MAX_LATENCY or num_registers > MAX_REGISTERS:
+        raise ValueError(
+            f"jugglepac_fsm: the kernel takes latency <= {MAX_LATENCY}"
+            f" and num_registers <= {MAX_REGISTERS}; got {latency}, "
+            f"{num_registers}")
 
 
 def jugglepac_fsm_torch(values: torch.Tensor, starts: torch.Tensor,
@@ -76,11 +120,7 @@ def jugglepac_fsm_cuda(values: torch.Tensor, starts: torch.Tensor,
     global LAUNCHES
     from . import _build
     _check_shape(latency, num_registers)
-    if latency > MAX_LATENCY or num_registers > MAX_REGISTERS:
-        raise ValueError(
-            f"jugglepac_fsm_cuda: the kernel takes latency <= {MAX_LATENCY}"
-            f" and num_registers <= {MAX_REGISTERS}; got {latency}, "
-            f"{num_registers}")
+    _check_limits(latency, num_registers)
     if not values.is_cuda:
         raise ValueError("jugglepac_fsm_cuda needs a CUDA tensor; got "
                          f"values on {values.device}")
@@ -110,6 +150,7 @@ def jugglepac_fsm_cuda(values: torch.Tensor, starts: torch.Tensor,
         values.data_ptr(), starts.data_ptr(), valids.data_ptr(),
         res_v.data_ptr(), res_set.data_ptr(), res_en.data_ptr(),
         ovf.data_ptr(), b, t, latency, num_registers,
+        smem_bytes(latency, num_registers),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"jugglepac_fsm launch failed: CUDA error {rc}")

@@ -261,6 +261,23 @@ def test_run_sets_matches_both_references():
                                        num_registers=2, drain=3)[0]
 
 
+def test_kernel_shared_memory_fits_a_block_and_grows_with_l_and_r():
+    """The kernel's shared memory a block (``smem_bytes``, which the
+    wrapper passes to the launch) stays under Hopper's 232,448 B for every
+    1 <= L, R <= 64 and grows with each of L and R; at the paper's design
+    point (L = 14, R = 4) four blocks fit an SM's 233,472 B (1 KB of it
+    reserved a block), so 65,536 circuits fit 132 SMs at once."""
+    from repro_torch.kernels import _build, jugglepac_fsm
+    size = np.array([[jugglepac_fsm.smem_bytes(lat, regs)
+                      for regs in range(1, 65)] for lat in range(1, 65)])
+    assert _build.SMEM_BYTES == 232448
+    assert size.max() < _build.SMEM_BYTES
+    assert (np.diff(size, axis=0) > 0).all()
+    assert (np.diff(size, axis=1) > 0).all()
+    assert 4 * (size[13, 3] + 1024) <= 233472
+    assert 4 * 132 * jugglepac_fsm.THREADS >= 65536
+
+
 def test_scan_without_device_raises_when_cuda_is_absent():
     """``device=None`` means the card; ``device="cpu"`` runs the plain
     version.  The kernel's wrapper refuses what it lacks."""

@@ -1062,3 +1062,35 @@ def test_cuda_run_sets_launches_the_kernel_once_and_equals_python(cuda):
     pac = circuit.JugglePAC(14, 4)
     assert got == [(r.set_index, r.value, r.cycle) for r in pac.run(sets)]
     assert pac.fifo_overflows == 0 and len(got) == 12
+
+
+@pytest.mark.cuda
+def test_cuda_jugglepac_fsm_shared_state_bitwise_plain_across_blocks(cuda):
+    """The kernel, its circuits' state in shared memory, against its
+    plain version: all four per-cycle outputs bitwise (``res_v`` as int32
+    bits) at (L, R) = (64, 64) (the largest shared-memory opt-in), (32,
+    16) and (14, 4), on three CUDA blocks of ``THREADS`` circuits plus 5
+    in a ragged fourth, and T not a multiple of ``CHUNK``: 4-byte aligned
+    rows (the flags move as words) and, one cycle shorter, unaligned ones
+    (as bytes); one launch a call, and four blocks an SM at the design
+    point."""
+    from repro_torch.kernels import jugglepac_fsm as fsm
+    b, t = 3 * fsm.THREADS + 5, 20 * fsm.CHUNK + 4
+    streams = _fsm_streams(41, b, t)
+    for tt in (t, t - 1):
+        v, st, va = (torch.tensor(x[:, :tt].copy(), device=cuda)
+                     for x in streams)
+        for lat, regs in ((64, 64), (32, 16), (14, 4)):
+            before = fsm.LAUNCHES
+            kern = fsm.jugglepac_fsm_cuda(v, st, va, latency=lat,
+                                          num_registers=regs)
+            torch.cuda.synchronize()
+            assert fsm.LAUNCHES == before + 1
+            plain = fsm.jugglepac_fsm_torch(v, st, va, latency=lat,
+                                            num_registers=regs)
+            assert torch.equal(kern[0].view(torch.int32),
+                               plain[0].view(torch.int32))
+            for a, c in zip(kern[1:], plain[1:]):
+                assert torch.equal(a, c)
+            assert kern[2][-5:].any(1).all()
+    assert fsm.blocks_per_sm(14, 4) >= 4
