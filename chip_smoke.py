@@ -32,13 +32,17 @@ a KV head), its embedding-input forward and its M-RoPE on a patch grid's
 positions.  Then seamless-m4t-large-v2 whole, an encoder-decoder: its
 encoder over each request's memory, the decoder prefilled and decoded
 through the train module's step factories with cross-attention on K2.
-Last, data parallelism across ranks of a process group on the one card:
+Then data parallelism across ranks of a process group on the one card:
 groups of 2, 4 and 1 fresh interpreters (gloo) reduce phase 5's stream
 through the sharded executor and train xlstm-125m whole through the
 elastic step, resumed from 2 ranks onto 4 and onto 1 bit for bit.
-Last, the paper's own circuit: the JugglePAC state machine as a batched
+Then the paper's own circuit: the JugglePAC state machine as a batched
 scan (``repro_torch.core.circuit_scan``, one CUDA thread a circuit) at
 65,536 circuits x 16,384 cycles, and Table II searched on the card.
+Last, the reduce knobs under autograd: ``rmsnorm(policy=)`` on K1 with
+its gradient, a stablelm train step with ``cfg.norm_reduce_policy`` set,
+and the dry-run's bytes (``repro_torch.launch.dryrun``) against what the
+serving phase allocated.
 All data is drawn from ``--seed``.  Phases, in order; any failure exits nonzero:
 
 1. device — the card's name and power limit, as nvidia-smi prints them;
@@ -344,7 +348,19 @@ All data is drawn from ``--seed``.  Phases, in order; any failure exits nonzero:
    the waves the run takes, and the kernel's ptxas line (registers,
    stack frame, spills); its kernel entry gives the circuit-cycles each
    time covers (``cycles`` for ``ms``, ``plain_cycles`` for
-   ``plain_ms``).
+   ``plain_ms``);
+23. knobs under autograd — ``rmsnorm(g, x, policy=tier)`` at
+   stablelm-1.6b's width on ``KNOB_BATCH`` x ``KNOB_SEQ`` bf16 tokens,
+   every tier on the ``cuda`` executor (K1 once in the forward, a gather
+   by label in the backward) and on ``blocked``: the output, dL/dx and
+   dL/dg bitwise equal; stablelm cut to ``KNOB_LAYERS`` layers with
+   ``cfg.norm_reduce_policy`` set to each of ``KNOB_TIERS``: the loss
+   finite, every gradient leaf bitwise across two runs, K1
+   ``KNOB_K1_PER_STEP`` times a step (counts set to 0 just before the
+   step, read just after); K1 at the knob's launch bitwise its plain
+   version, timed beside ``torch.sum(0)``, with the step's ms; the
+   dry-run's parameter and cache bytes for phase 10's serving
+   configuration equal to what phase 10 allocated, exactly.
 
 Times are CUDA-event medians after a warm-up (plain versions: one
 host-clock run; K1 on the train path: the sum over a step's launches,
@@ -747,6 +763,19 @@ CIRCUIT_SETS = (64, 512)
 CIRCUIT_PREFIX, CIRCUIT_ORACLE = 4096, 16
 #: Table II's latency constant, DS + 110..113 (paper)
 CIRCUIT_PAPER_C = (110, 113)
+#: phase 23: the rmsnorm knob per layer at stablelm-1.6b's width on
+#: (KNOB_BATCH x KNOB_SEQ) tokens, and its train step cut to KNOB_LAYERS
+#: layers on a batch of that shape
+KNOB_ARCH, KNOB_BATCH, KNOB_SEQ, KNOB_LAYERS = "stablelm-1.6b", 8, 256, 2
+#: the knob's train-step tiers: a float tier (a gather backward) and an
+#: integer one (outside the graph)
+KNOB_TIERS = ("fast", "exact2")
+#: K1 launches of a knob train step: each block's two rmsnorms and the
+#: final one in the forward, the blocks' two again where remat recomputes
+#: them; the backward launches none (a gather by label)
+KNOB_K1_PER_STEP = 2 * KNOB_LAYERS + 1 + 2 * KNOB_LAYERS
+#: the parameter and cache bytes phase 10's serving run allocated
+PHASE10_BYTES = {}
 
 
 def fail(msg: str) -> int:
@@ -1392,6 +1421,8 @@ def serve_phase(seed, dev, smi):
     # count is read after every engine step too (0 until the run's end,
     # when _finalize_logprobs takes the mean)
     eng = engine("compensated")
+    PHASE10_BYTES.update(params=M.param_bytes(model),
+                         caches=M.cache_bytes(eng._caches))
     stream = {}
     k1_during = []
 
@@ -5653,6 +5684,183 @@ def circuit_phase(seed, dev, smi):
             "library_ms": None, "cycles": b * t, "plain_cycles": p * p}
 
 
+def bits_equal(a, b) -> bool:
+    """Bitwise equality of two tensors, the sign of zero and NaN payloads
+    included (``torch.equal`` takes -0 for +0)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (t.contiguous().view(view[t.element_size()]) for t in (a, b))
+    return torch.equal(a, b)
+
+
+def knobs_autograd_phase(seed, dev, smi):
+    """Phase 23: the reduce knobs under autograd, K1 in the forward and a
+    gather by label in the backward; the dry-run against phase 10's
+    allocations.  Returns K1's entries on the knob's train path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataCfg, SyntheticLM
+    from repro_torch.kernels import jugglepac_segsum as K
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.models import layers as LY
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeCfg
+    from repro_torch.optim import adamw
+    from repro_torch.reduce import get_policy, plan_program
+    from repro_torch.train import init_state, make_grad_fn, make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = get_config(KNOB_ARCH)
+    d, dt = cfg.d_model, getattr(torch, cfg.dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 231)
+    shape = (KNOB_BATCH, KNOB_SEQ, d)
+    x0 = torch.randn(shape, generator=gen, device=dev).to(dt)
+    g0 = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(dt)
+    cot = torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    # 1. one rmsnorm per tier, on K1 and on its plain version: output,
+    # dL/dx and dL/dg bitwise; K1 once in the forward, never backward
+    for tier in TIERS:
+        res = {}
+        for backend in ("cuda", "blocked"):
+            g = g0.clone().requires_grad_(True)
+            x = x0.clone().requires_grad_(True)
+            K.LAUNCHES = 0
+            y = LY.rmsnorm(g, x, cfg.norm_eps, policy=tier, backend=backend)
+            fwd = K.LAUNCHES
+            dx, dg = torch.autograd.grad(y, (x, g), cot)
+            torch.cuda.synchronize()
+            res[backend] = (y.detach(), dx, dg, fwd, K.LAUNCHES - fwd)
+        same_bits = [bits_equal(a, b) for a, b in zip(res["cuda"][:3],
+                                                      res["blocked"][:3])]
+        print(f"knobs rmsnorm {tier:13s} ({KNOB_BATCH} x {KNOB_SEQ} tokens "
+              f"x {d}, {cfg.dtype}): cuda vs blocked output / dL/dx / "
+              f"dL/dg {['bitwise' if s else 'DIFFER' for s in same_bits]}; "
+              f"K1 launches forward {res['cuda'][3]}, backward "
+              f"{res['cuda'][4]} (blocked: {res['blocked'][3]})", flush=True)
+        check(all(same_bits) and res["cuda"][3:] == (1, 0)
+              and res["blocked"][3:] == (0, 0),
+              f"knobs: rmsnorm({tier}) on K1 differs from blocked under "
+              f"autograd, or K1 ran {res['cuda'][3:]} times")
+    del x0, g0, cot, res, x, g, y, dx, dg
+
+    # 2. a train step with cfg.norm_reduce_policy set, KNOB_LAYERS layers
+    data = SyntheticLM(DataCfg(vocab=cfg.vocab, seq_len=KNOB_SEQ,
+                               global_batch=KNOB_BATCH, seed=seed))
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in data.batch(0).items()}
+    lr_fn = adamw.cosine_schedule(TRAIN_LR, 1, TRAIN_STEPS)
+    entries = []
+    for tier in KNOB_TIERS:
+        kcfg = cfg.scaled(n_layers=KNOB_LAYERS, norm_reduce_policy=tier)
+        gen.manual_seed(seed + 232)
+        model = M.init_params(kcfg, generator=gen, device=dev)
+        model.requires_grad_(True)
+        grad_fn = make_grad_fn(kcfg)
+        runs = []
+        for _ in range(2):
+            K.LAUNCHES = 0
+            grads, (loss, _) = grad_fn(model, batch)
+            torch.cuda.synchronize()
+            runs.append((grads, float(loss), K.LAUNCHES))
+        rep = [k for k in runs[0][0]
+               if not bits_equal(runs[0][0][k], runs[1][0][k])]
+        step = make_train_step(kcfg, lr_fn=lr_fn, device=dev)
+        state = init_state(model)
+        # the main path: counts set to 0 just before the step, read after
+        K.LAUNCHES = 0
+        _, state, met = step(model, state, batch)
+        torch.cuda.synchronize()
+        launches = K.LAUNCHES
+        step_loss = float(met["loss"])
+        step_ms = cuda_ms(lambda: step(model, state, batch), 3)
+        print(f"main knobs train ({kcfg.name} at {KNOB_LAYERS} layers, "
+              f"norm_reduce_policy={tier}, {KNOB_BATCH} x {KNOB_SEQ}): "
+              f"loss {runs[0][1]:.6f}, {len(runs[0][0])} gradient leaves, "
+              f"{len(rep)} differ across two runs {rep}; K1 launches a "
+              f"forward and backward {runs[0][2]}, a step {launches} (want "
+              f"{KNOB_K1_PER_STEP}); step loss {step_loss:.6f}", flush=True)
+        check(math.isfinite(runs[0][1]) and runs[0][1] == runs[1][1]
+              and not rep and math.isfinite(step_loss)
+              and runs[0][2] == runs[1][2] == launches == KNOB_K1_PER_STEP,
+              f"knobs: the {tier} step is not finite, repeatable or on K1 "
+              f"{KNOB_K1_PER_STEP} times a step")
+        # K1 at the knob's launch: the (d, B*S) sumsq stream, one label
+        pol = get_policy(tier)
+        cols = torch.randn(d, KNOB_BATCH * KNOB_SEQ, generator=gen,
+                           device=dev)
+        n = cols.shape[0]
+        dom, _ = pol.prepare(cols * cols, n)
+        ids = torch.zeros(n, dtype=torch.int32, device=dev)
+        w = dom.shape[1]
+        prog = plan_program(pol, num_segments=1, domain_width=w,
+                            block_size=512, op="sumsq")
+        call = lambda: K.segsum_policy_cuda(  # noqa: E731
+            dom, ids, 1, policy=pol, program=prog, block_rows=512)
+        k1_ms = cuda_ms(call, REPS)
+        kern = call()
+        pad = (-n) % 512
+        plain_ms, plain = host_ms(lambda: K.segsum_policy_torch(
+            torch.cat([dom, dom.new_zeros((pad, w))]),
+            torch.cat([ids, ids.new_full((pad,), -1)]), 1, policy=pol,
+            program=prog, block_rows=512))
+        ok, err = same(kern, plain)
+        ldom = dom if not pol.integer else dom.to(torch.int32)
+        lib_ms = cuda_ms(lambda: torch.sum(ldom, 0), REPS)
+        bytes_ = n * 4 + n * w * 4 + sum(c.numel() * 4 for c in kern)
+        ops = n * w
+        bound_ms = max(bytes_ / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
+        print(f"time knobs {tier}: K1 forward {k1_ms:.4f} ms a launch "
+              f"(({n}, {w}) domain, one label) x {launches} a step = "
+              f"{k1_ms * launches:.3f} ms of a {step_ms:.1f} ms step; "
+              f"bound {bound_ms:.4f} ms, plain {plain_ms:.2f} ms, "
+              f"torch.sum(0) {lib_ms:.4f} ms; kernel vs plain "
+              f"{'bitwise' if ok else 'DIFFER'} | {smi}", flush=True)
+        check(ok, f"knobs: K1 differs from its plain version at the "
+                  f"{tier} knob's shape")
+        entries.append({
+            "name": f"segsum_policy_kernel<{tier}> rmsnorm knob",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/segsum.cu",
+            "replaces": "src/repro/kernels/jugglepac_segsum.py:77",
+            "launches": launches, "max_abs_err": err,
+            "ms": k1_ms * launches, "plain_ms": plain_ms * launches,
+            "bound_ms": bound_ms * launches,
+            "bound_by": ("bytes" if bytes_ / HBM_BYTES_PER_S
+                         >= ops / FP32_OPS_PER_S else "operations"),
+            "library_ms": lib_ms * launches})
+        del model, state, runs, grads, step, grad_fn, dom, kern, plain, ldom
+        torch.cuda.empty_cache()
+
+    # 3. the dry-run's bytes against what phase 10 allocated
+    scfg = get_config(SERVE_ARCH)
+    want_p = specs.nbytes(specs.abstract_params(scfg))
+    want_c = specs.nbytes(specs.abstract_caches(scfg, SERVE_SLOTS,
+                                                SERVE_LEN))
+    rec = dryrun.measure_step(scfg, ShapeCfg("serve", SERVE_LEN,
+                                             SERVE_SLOTS, "decode"))
+    inputs = SERVE_SLOTS * 4 + 4                 # token (B, 1), position
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"knobs dry-run: {SERVE_ARCH} parameters {want_p} B predicted, "
+          f"{PHASE10_BYTES['params']} B allocated; caches ({SERVE_SLOTS} x "
+          f"{SERVE_LEN}) {want_c} B predicted, {PHASE10_BYTES['caches']} B "
+          f"allocated; the decode cell's arguments "
+          f"{rec['argument_size_in_bytes']} B; total_memory {total} B "
+          f"(dryrun.H100_MEMORY_BYTES {dryrun.H100_MEMORY_BYTES}, "
+          f"{dryrun.H100_CARD})", flush=True)
+    check(want_p == PHASE10_BYTES["params"]
+          and want_c == PHASE10_BYTES["caches"]
+          and rec["argument_size_in_bytes"] == want_p + want_c + inputs,
+          "knobs: the dry-run's bytes differ from phase 10's allocations")
+    print(f"knobs: phase 23 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5976,6 +6184,9 @@ def main(argv=None) -> int:
           flush=True)
     kernels.append(circuit_phase(args.seed, dev, smi))
     print(f"elapsed after phase 22: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    kernels += knobs_autograd_phase(args.seed, dev, smi)
+    print(f"elapsed after phase 23: {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)

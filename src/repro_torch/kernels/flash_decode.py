@@ -223,14 +223,21 @@ def _split_merge(q, kh, rows_of, bias, nb, block, per, sm_scale):
     finalized -> (B, H, d)."""
     b, h, d = q.shape
     comp = split_liveness(bias, block, nb, per)
+    meta = q.device.type == "meta"
     parts = {}
     for c in range(comp.shape[1]):
-        if bool(comp[:, c].any()):
+        # liveness is data, which a meta tensor does not hold: on meta
+        # (the dry-run, shapes alone) every split is computed
+        if meta or bool(comp[:, c].any()):
             m, l, acc = _run(q, kh, rows_of, bias,
                              range(c * per, min(c * per + per, nb)), block,
                              sm_scale)
             parts[c] = (m.reshape(b, h), l.reshape(b, h), acc.reshape(b, h, d))
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
+    if meta:
+        # the per-request merge is elementwise: it changes no shape and
+        # no product the dry-run counts
+        return out
     for bi in range(b):
         cs = [c for c in range(comp.shape[1]) if bool(comp[bi, c])]
         m, l, o = (torch.stack([parts[c][i][bi] for c in cs])

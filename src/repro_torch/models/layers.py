@@ -185,7 +185,8 @@ def mrope_streams(sections, device=None) -> torch.Tensor:
     i in order."""
     return torch.repeat_interleave(
         torch.arange(3, device=device),
-        torch.tensor(list(sections), device=device))
+        torch.tensor(list(sections), device=device),
+        output_size=sum(sections))
 
 
 def rope_tables(positions: torch.Tensor, hdim: int, theta: float,

@@ -25,6 +25,7 @@ tiers give the one-process bits at any rank count.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -33,7 +34,8 @@ from .. import resolve_device
 from ..core import intac
 from ..distributed import comm
 from .algebra import get_op
-from .backends import get_backend, mask_out_of_range, select_backend
+from .backends import (get_backend, mask_out_of_range, run_with_carry_grad,
+                       select_backend)
 from .policy import get_policy
 from .program import plan_program
 
@@ -179,9 +181,11 @@ def _sum(values, segment_ids, *, spec: ReduceSpec, num_segments: int,
     else:
         domain, ctx = policy.prepare(values, n)
         del values
-        carry = backend.run(domain, segment_ids, num_segments,
-                            policy=policy, block_size=spec.block_size,
-                            **run_kw)
+        run = backend.run
+        if not backend.autograd:
+            run = functools.partial(run_with_carry_grad, run)
+        carry = run(domain, segment_ids, num_segments, policy=policy,
+                    block_size=spec.block_size, **run_kw)
         del domain
     if with_status:
         sat = policy.carry_status(carry)
@@ -272,8 +276,10 @@ def reduce(values, *, segment_ids=None, num_segments: Optional[int] = None,
       on_overflow: "raise" rejects streams beyond the policy's headroom
         bounds; "degrade" chunks them and escalates on saturation.
       device: where to run; None means "cuda" (raises without CUDA).
-        The ``cuda`` backend raises for values that require grad: K1
-        has no backward.
+        Values that require grad differentiate on every single-device
+        executor as on ``blocked`` (``cuda`` through
+        ``backends.run_with_carry_grad``); the sharded executor on CUDA
+        raises for them.
       group: a process group (``repro_torch.distributed.comm``) whose
         ranks each pass their own contiguous slice of the rows and each
         get the whole stream's result; only for the distributed backend
@@ -324,16 +330,15 @@ def reduce(values, *, segment_ids=None, num_segments: Optional[int] = None,
         # auto-selection declined a one-rank group: the local executor
         # over this rank's rows, which are the whole stream
         group = None
-    on_k1 = bk.name == "cuda" or (bk.distributed and dev.type == "cuda")
-    if on_k1 and getattr(values, "requires_grad", False):
-        # K1 is a ctypes launch with no backward: a gradient would stop
-        # here without a word
+    if (bk.distributed and dev.type == "cuda"
+            and getattr(values, "requires_grad", False)):
+        # each rank folds with K1, and a gradient across the ranks' merge
+        # is not written yet: it would stop here without a word
         raise NotImplementedError(
-            "repro_torch.reduce: backend 'cuda' (K1) has no backward, and "
-            "these values require grad; reduce a detached tensor, or leave "
-            "the policy knob (e.g. cfg.norm_reduce_policy) unset while "
-            "training — ROADMAP.md queue 1, item 7 (K1 under autograd) "
-            "brings it")
+            "repro_torch.reduce: the sharded executor on CUDA (K1 in every "
+            "rank) has no backward, and these values require grad; reduce "
+            "a detached tensor — ROADMAP.md queue 1, item 9 (the sharded "
+            "executor under autograd) brings it")
 
     values = torch.as_tensor(values, device=dev)
     if not values.is_floating_point():

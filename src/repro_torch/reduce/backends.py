@@ -14,7 +14,8 @@ order.  The results are bitwise equal across executors, per policy:
                   gathers in batches of blocks, then the in-order fold.
   * ``cuda``    — the Hopper kernel (the reference's ``pallas``
                   backend); CUDA tensors only, and it raises rather than
-                  fall back.
+                  fall back.  Under autograd ``reduce`` wraps it in
+                  ``run_with_carry_grad``: the plain executors' gradient.
   * ``shard_map`` — the reference's multi-device executor, kept under its
                   name so that a spec carries across: each rank of a
                   process group folds its own contiguous slice of rows
@@ -64,13 +65,17 @@ class Backend:
     #: distributed executors take ``group=`` (a process group) and run in
     #: every rank of it
     distributed: bool = False
+    #: True when ``run`` is plain PyTorch that autograd records; a kernel
+    #: launch is not, and ``reduce`` wraps it in ``run_with_carry_grad``
+    autograd: bool = True
 
     def supports(self, policy: Policy) -> bool:
         return "*" in self.policies or policy.name in self.policies
 
 
 def register_backend(name: str, *, policies, description: str = "",
-                     staged: bool = False, distributed: bool = False):
+                     staged: bool = False, distributed: bool = False,
+                     autograd: bool = True):
     """Decorator: register ``fn`` as backend ``name`` (``policies``: an
     iterable of policy names, or "*" for schedule-generic executors)."""
     def deco(fn):
@@ -85,7 +90,7 @@ def register_backend(name: str, *, policies, description: str = "",
             caps = frozenset(policies)
         BACKENDS[name] = Backend(name=name, run=fn, policies=caps,
                                  description=description, staged=staged,
-                                 distributed=distributed)
+                                 distributed=distributed, autograd=autograd)
         return fn
     return deco
 
@@ -152,6 +157,50 @@ def _pad_to_blocks(values, segment_ids, block_size):
             ids.reshape(nb, block_size), nb)
 
 
+class _CarryGrad(torch.autograd.Function):
+    """An executor's carry with the gradient autograd derives through the
+    plain executors: the forward runs the executor as it is, the backward
+    gathers the (S, W) gradient of the first carry by label."""
+
+    @staticmethod
+    def forward(ctx, domain, ids, run, num_segments, policy, kw):
+        carry = run(domain.detach(), ids, num_segments, policy=policy, **kw)
+        ctx.save_for_backward(ids)
+        return tuple(carry)
+
+    @staticmethod
+    def backward(ctx, g, *_):
+        ids, = ctx.saved_tensors
+        s = g.shape[0]
+        keep = (ids >= 0) & (ids < s)
+        zero = torch.zeros((), dtype=g.dtype, device=g.device)
+        rows = g.index_select(0, torch.where(keep, ids, 0).long())
+        # autograd through the plain gather adds each row's gradient to
+        # the zeros of its masked leaves, which turns -0 into +0: so does
+        # the + 0
+        rows = torch.where(keep[:, None], rows, zero) + zero
+        return rows, None, None, None, None, None
+
+
+def run_with_carry_grad(run, domain, ids, num_segments, *, policy: Policy,
+                        **kw):
+    """``run(domain, ids, num_segments, policy=, **kw)`` (any executor's
+    ``run``) with the carry in ``domain``'s autograd graph.
+
+    The gradient is the one autograd derives through ``ref`` and
+    ``blocked``, as ``jax.grad`` derives the reference's through its
+    executors: every schedule add is an IEEE add, so each row whose label
+    is in [0, num_segments) receives its set's incoming gradient exactly,
+    and a dropped row receives 0.  Under ``compensated`` the TwoSum
+    residual carry's derivative is exactly 0 (the rounding error's terms
+    cancel), so only the sum carry's gradient reaches the rows.  An
+    integer domain is outside the graph already: ``run`` alone."""
+    if (policy.integer or not domain.requires_grad
+            or not torch.is_grad_enabled()):
+        return run(domain, ids, num_segments, policy=policy, **kw)
+    return _CarryGrad.apply(domain, ids, run, num_segments, policy, kw)
+
+
 # ---------------------------------------------------------------------------
 # Built-in backends
 # ---------------------------------------------------------------------------
@@ -187,7 +236,7 @@ def _run_blocked(values, segment_ids, num_segments, *, policy: Policy,
 
 @register_backend("cuda", policies=("fast", "compensated", "exact",
                                     "exact2", "procrastinate"),
-                  staged=True,
+                  staged=True, autograd=False,
                   description="hand-written Hopper kernel (sm_90a): one "
                               "CUDA block per (label tile, column tile) "
                               "walks the whole schedule in block order; "

@@ -357,8 +357,11 @@ class Exact2Policy(Policy):
 
     def to_domain(self, values: torch.Tensor, ctx):
         """(N, 8D) f32: the quantized value, then the residual's digit
-        planes, each column an integer below 2^21 (q) or 2^6 (digits)."""
-        v = values.to(torch.float32)
+        planes, each column an integer below 2^21 (q) or 2^6 (digits).
+        Every plane is an int32 cast in the reference, which passes no
+        gradient: the domain leaves the autograd graph here, as the
+        integer domains of ``exact`` and ``procrastinate`` do."""
+        v = values.detach().to(torch.float32)
         n, d = v.shape
         scale = ctx
         out = torch.empty((n, self.parts * d), dtype=torch.float32,

@@ -199,17 +199,20 @@ def test_adamw_update_in_place_bitwise_functional(clip):
 
 
 def test_reduce_cuda_backend_raises_for_values_that_require_grad():
-    """K1 has no backward: ``reduce(..., backend="cuda")`` on a tensor
-    that requires grad raises, naming the ROADMAP item, before any device
-    check; the same values detached reach the device check instead."""
+    """K1 runs under autograd (``backends.run_with_carry_grad``): a
+    single-device ``reduce(..., backend="cuda")`` on a tensor that
+    requires grad no longer refuses it, and reaches the device check as
+    the same values detached do; ``blocked`` on the CPU differentiates."""
     x = torch.ones(8, 4, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        treduce.reduce(x, policy="exact", backend="cuda", device=CPU)
+    for v in (x, x.detach()):
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            treduce.reduce(v, policy="exact", backend="cuda", device=CPU)
     with pytest.raises(ValueError, match="CUDA tensors only"):
-        treduce.reduce(x.detach(), policy="exact", backend="cuda",
-                       device=CPU)
+        treduce.reduce(x, policy="fast", backend="cuda", device=CPU)
     y = treduce.reduce(x, policy="fast", backend="blocked", device=CPU)
     assert y.shape == (4,)
+    g, = torch.autograd.grad(y.sum(), x)
+    assert torch.equal(g, torch.ones_like(x))
 
 
 def test_multi_device_knobs_raise():
