@@ -39,10 +39,12 @@ elastic step, resumed from 2 ranks onto 4 and onto 1 bit for bit.
 Then the paper's own circuit: the JugglePAC state machine as a batched
 scan (``repro_torch.core.circuit_scan``, one CUDA thread a circuit) at
 65,536 circuits x 16,384 cycles, and Table II searched on the card.
-Last, the reduce knobs under autograd: ``rmsnorm(policy=)`` on K1 with
+Then the reduce knobs under autograd: ``rmsnorm(policy=)`` on K1 with
 its gradient, a stablelm train step with ``cfg.norm_reduce_policy`` set,
 and the dry-run's bytes (``repro_torch.launch.dryrun``) against what the
-serving phase allocated.
+serving phase allocated.  Last, the port's determinism lint
+(``repro_torch.analysis``) over the checkout, and its contract matrix on
+the card, K1 in every ``cuda`` row.
 All data is drawn from ``--seed``.  Phases, in order; any failure exits nonzero:
 
 1. device — the card's name and power limit, as nvidia-smi prints them;
@@ -360,7 +362,23 @@ All data is drawn from ``--seed``.  Phases, in order; any failure exits nonzero:
    step, read just after); K1 at the knob's launch bitwise its plain
    version, timed beside ``torch.sum(0)``, with the step's ms; the
    dry-run's parameter and cache bytes for phase 10's serving
-   configuration equal to what phase 10 allocated, exactly.
+   configuration equal to what phase 10 allocated, exactly;
+24. determinism lint — ``tools/detlint_torch.py``'s AST layer (DET001-
+   DET006 and the registry rule DET005) over the checkout's
+   ``src/repro_torch`` with its waiver ratchet against
+   ``tools/detlint_torch_baseline.json``, then
+   ``analysis.contracts.run_contracts(device="cuda")`` over the
+   single-device backends ``DETLINT_BACKENDS``: the 90 op x policy x
+   backend rows on the reference's canonical inputs (N = 128, D = 2, S =
+   4), the carry dtypes (DET101) and integer ``merge_is_add`` carries
+   (DET102) of K1's own runs, the nvcc flags (DET103), the integer tiers'
+   aten ops across block sizes (DET104) and every row run (DET105); K1
+   launched by each of the 30 ``cuda`` rows (counts set to 0 just before
+   the matrix, read just after); each integer tier's ``cuda`` result
+   bitwise ``blocked``'s at every op; no unwaived finding, no row "not
+   run", no waiver above the baseline; the finding counts by rule, the
+   rows and the phase's seconds printed; K1 at the matrix's shape
+   bitwise its plain version, timed beside ``index_add_``.
 
 Times are CUDA-event medians after a warm-up (plain versions: one
 host-clock run; K1 on the train path: the sum over a step's launches,
@@ -5861,6 +5879,76 @@ def knobs_autograd_phase(seed, dev, smi):
     return entries
 
 
+#: the single-device backends phase 24 runs the contract matrix over
+DETLINT_BACKENDS = ("ref", "blocked", "cuda")
+#: op x policy rows of the matrix that launch K1 (the ``cuda`` backend)
+DETLINT_K1_ROWS = 30
+
+
+def detlint_phase(seed, dev, smi):
+    """Phase 24: the port's determinism lint on the checkout, and the
+    contract matrix on the card (K1 in every ``cuda`` row).  Returns K1's
+    entry at the matrix's shape."""
+    import importlib.util
+    import torch
+    from collections import Counter
+    from repro_torch.analysis import contracts as C
+
+    t_phase = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "detlint_torch", ROOT / "tools" / "detlint_torch.py")
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    files, ast_found = cli.lint(ast_only=True)
+    t_ast = time.perf_counter() - t_phase
+    rows = C.matrix_size(DETLINT_BACKENDS)
+    reset_launches()
+    found = C.run_contracts(device=dev, backends=DETLINT_BACKENDS)
+    torch.cuda.synchronize()
+    launches = read_launches()["K1"]
+    t_matrix = time.perf_counter() - t_phase - t_ast
+    everything = ast_found + found
+    unwaived = [f for f in everything if not f.waived and not f.not_run]
+    not_run = [f for f in found if f.not_run]
+    counts = cli.waiver_counts(everything)
+    errors, _ = cli.check_ratchet(
+        counts, json.loads(cli.BASELINE.read_text()))
+    by_rule = Counter(f.rule for f in everything if not f.not_run)
+    for f in unwaived + not_run:
+        print(f"detlint: {f}", flush=True)
+    for e in errors:
+        print(f"detlint ratchet: {e}", flush=True)
+    print(f"detlint: {len(files)} files; findings by rule "
+          f"{dict(sorted(by_rule.items()))}, waived "
+          f"{dict(sorted(counts.items()))}, unwaived {len(unwaived)}; "
+          f"matrix {rows} rows over {DETLINT_BACKENDS}, {len(not_run)} not "
+          f"run; K1 launched {launches} times; AST {t_ast:.1f} s, matrix "
+          f"{t_matrix:.1f} s | {smi}", flush=True)
+    check(not unwaived, "detlint: unwaived findings on the card")
+    check(not not_run, "detlint: rows of the matrix did not run")
+    check(not errors, "detlint: waivers above the baseline")
+    check(rows == 3 * DETLINT_K1_ROWS, f"detlint: {rows} rows, not 90")
+    check(launches >= DETLINT_K1_ROWS,
+          f"detlint: K1 launched {launches} times for "
+          f"{DETLINT_K1_ROWS} cuda rows")
+    # DET105 held each integer tier's cuda result bitwise blocked's: a
+    # differing row would be an unwaived finding above
+    print(f"detlint: {len(INT_TIERS) * DETLINT_K1_ROWS // len(TIERS)} "
+          f"integer-tier cuda rows bitwise blocked (DET105)", flush=True)
+
+    ctx = C._Ctx.build(dev, None, DETLINT_BACKENDS)
+    vals = torch.from_numpy(ctx.vals).to(dev)
+    ids = torch.from_numpy(ctx.ids).to(dev)
+    safe = ids.to(torch.int64)
+    entry = dict(k1_entry(
+        "detlint-matrix", vals, ids, C._S, "exact2", smi,
+        library=lambda: torch.zeros((C._S, vals.shape[1]), device=dev)
+        .index_add_(0, safe, vals)), launches=launches)
+    print(f"detlint: phase 24 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return [entry]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6187,6 +6275,9 @@ def main(argv=None) -> int:
           flush=True)
     kernels += knobs_autograd_phase(args.seed, dev, smi)
     print(f"elapsed after phase 23: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    kernels += detlint_phase(args.seed, dev, smi)
+    print(f"elapsed after phase 24: {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -26,6 +26,10 @@ def segment_sum_ref(values: torch.Tensor, segment_ids: torch.Tensor,
                                            device=values.device))
     out = torch.zeros((num_segments + 1,) + tuple(values.shape[1:]),
                       dtype=values.dtype, device=values.device)
+    # detlint: ok[DET003] open fault (ROADMAP queue 3, F6): a float index_add_
+    # adds with CUDA atomics in no fixed order; an oracle held to a tolerance,
+    # but segment_mean routes float rows here by default, so on the card
+    # segment_mean can differ run to run
     return out.index_add_(0, ids, vals)[:num_segments]
 
 
@@ -37,6 +41,9 @@ def segment_count_ref(segment_ids: torch.Tensor, num_segments: int,
                    device=segment_ids.device)
     if valid is not None:
         w = w * valid.to(torch.float32)
+    # detlint: ok[DET006] counts ride the same impl as the sums (reference
+    # core/segmented.py:66); ones add exactly in any order below 2^24, and
+    # every caller bounds N well under it
     return segment_sum_ref(w, segment_ids, num_segments)
 
 
@@ -72,10 +79,16 @@ def segments_from_lengths(lengths, total: int) -> torch.Tensor:
     empty sets) are dropped, as the reference's scatter drops them.
     """
     lengths = torch.as_tensor(lengths)
+    # detlint: ok[DET002] int64 domain: a prefix count of set lengths, exact in
+    # any order
     starts = torch.cumsum(lengths.to(torch.int64), 0)[:-1]
     starts = starts[(starts >= 0) & (starts < total)]
     marks = torch.zeros(total, dtype=torch.int32, device=lengths.device)
+    # detlint: ok[DET003] int32 domain: one int32 mark per set start, exact in
+    # any order
     marks.index_add_(0, starts, torch.ones_like(starts, dtype=torch.int32))
+    # detlint: ok[DET002] int32 domain: a prefix count of the marks, exact in
+    # any order
     return torch.cumsum(marks, 0, dtype=torch.int32)
 
 

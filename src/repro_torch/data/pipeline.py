@@ -53,6 +53,8 @@ class SyntheticLM:
         # fixed zipf table
         ranks = np.arange(1, cfg.vocab + 1, dtype=np.float64)
         p = 1.0 / ranks ** 1.1
+        # detlint: ok[DET001] host-side numpy f64 dataset init, never on the
+        # device (reference data/pipeline.py:52)
         self._p = (p / p.sum()).astype(np.float64)
 
     def batch(self, step: int) -> dict:

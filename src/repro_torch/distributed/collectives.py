@@ -102,6 +102,9 @@ def make_shardmap_train_step(cfg: ModelConfig, group, *, lr_fn: Callable,
             else:
                 grads, (losses, _) = accumulate_microbatch_grads(
                     grad_fn, model, mbs, num_microbatches=m)
+            # detlint: ok[DET001] m microbatch loss scalars, a logging metric;
+            # the gradients take the front door above (reference
+            # distributed/collectives.py:122)
             loss = losses.mean()
         else:
             grads, (loss, _) = grad_fn(model, local)

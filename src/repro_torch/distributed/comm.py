@@ -115,6 +115,8 @@ def psum(x: torch.Tensor, group) -> torch.Tensor:
         return x
     t0 = time.perf_counter()
     w = _send(group, x)
+    # detlint: ok[DET001] the port's one all_reduce: psum refuses float
+    # payloads, and an integer sum gives the same bits in any order
     dist.all_reduce(w, op=dist.ReduceOp.SUM, group=group)
     out = _receive(group, w, x)
     STATS["ms"] += (time.perf_counter() - t0) * 1e3
@@ -126,6 +128,17 @@ def psum_int(n: int, group, device=None) -> int:
     dev = _scalar_device(group, device)
     return int(psum(torch.tensor(int(n), dtype=torch.int64, device=dev),
                     group))
+
+
+def rows_before(n: int, group, device=None) -> int:
+    """The sum of the ``n`` of the ranks before this one: where this rank's
+    slice starts in a stream split into contiguous slices in rank order."""
+    if axis_size(group) == 1:
+        return 0
+    dev = _scalar_device(group, device)
+    counts = all_gather(torch.tensor(int(n), dtype=torch.int64, device=dev),
+                        group).tolist()
+    return sum(counts[:axis_index(group)])
 
 
 def all_gather(x: torch.Tensor, group) -> torch.Tensor:

@@ -44,7 +44,10 @@ def intac_accum_torch(values: torch.Tensor, scale) -> torch.Tensor:
     limb (whose ``Inf - Inf`` is NaN); the int64 sum then wraps to int32
     as the reference's int32 sum does."""
     hi, lo = _quantize(values, scale)
+    # detlint: ok[DET002] int32 domain: the limbs add in int64 and wrap to
+    # int32, exact in any order
     return torch.stack([to_i32(hi).to(torch.int64).sum(0),
+                        # detlint: ok[DET002] int32 domain: as the line above
                         to_i32(lo).to(torch.int64).sum(0)]).to(torch.int32)
 
 

@@ -135,6 +135,8 @@ def rmsnorm(g: torch.Tensor, x: torch.Tensor, eps: float = 1e-5, *,
     ``backend`` picks another executor."""
     xf = x.float()
     if policy is None:
+        # detlint: ok[DET001] policy=None legacy path, bits pinned; the sumsq
+        # front door is the knob (reference models/layers.py:69)
         var = torch.mean(xf * xf, dim=-1, keepdim=True)
     else:
         from .. import reduce as _reduce
@@ -175,6 +177,8 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def rope_freqs(hdim: int, theta: float, device=None) -> torch.Tensor:
+    # detlint: ok[DET006] RoPE frequency grid: hdim/2 well under 2^24
+    # (reference models/layers.py:116)
     return 1.0 / (theta ** (torch.arange(0, hdim, 2, dtype=torch.float32,
                                          device=device) / hdim))
 

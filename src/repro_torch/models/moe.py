@@ -88,11 +88,18 @@ def router_topk(router_w, x, m: MoECfg, *, backend: Optional[str] = None):
                                  backend=backend, device=w.device)   # (T,)
             w = w / torch.clamp(den[:, None], min=1e-9)
         else:
+            # detlint: ok[DET001] legacy branch, bits pinned;
+            # router_norm_policy is the front door (reference models/moe.py:66)
             w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
     # load-balancing auxiliary loss (Switch-style)
     e = m.num_experts
+    # detlint: ok[DET001] Switch aux-loss stats over E experts (reference
+    # models/moe.py:69)
     me = probs.mean(0)                                   # mean router prob
+    # detlint: ok[DET001] top-1 load, E experts (reference models/moe.py:72)
     ce = F.one_hot(idx[:, 0], e).to(torch.float32).mean(0)   # top-1 load
+    # detlint: ok[DET001] aux-loss scalar, E experts (reference
+    # models/moe.py:73)
     aux = e * torch.sum(me * ce)
     return w, idx, aux
 
@@ -154,6 +161,8 @@ def capacity_route(router_w, xt, cfg: ModelConfig, *,
     cg = capacity or max(1, int(m.capacity_factor * g * k / e))
     idx_g = idx.reshape(ng, g * k)                        # token-major
     onehot = F.one_hot(idx_g, e).to(torch.int32)          # (nG, G*k, E)
+    # detlint: ok[DET001] int32 slot-position prefix count: exact, part of the
+    # dispatch algorithm (reference models/moe.py:134)
     pos = torch.cumsum(onehot, dim=1, dtype=torch.int32) - 1
     pos = torch.gather(pos, 2, idx_g[..., None])[..., 0].long()
     keep = pos < cg                                       # (nG, G*k)
@@ -264,7 +273,11 @@ def moe_apply_dense(p, x, cfg: ModelConfig):
     e_eff = m.num_experts * v
     ye = _expert_ffn(p, xt.expand(e_eff, t, d))
     if v > 1:      # sum the virtual shards back into their parent experts
+        # detlint: ok[DET001] v virtual shards, fixed axis order; pinned by moe
+        # tests (reference models/moe.py:196)
         ye = ye.reshape(m.num_experts, v, t, d).sum(1)
+    # detlint: ok[DET003] one add per cell: a token's top-k experts are
+    # distinct, so each (token, expert) gate receives one add onto zero
     gates = torch.zeros((t, m.num_experts), dtype=torch.float32,
                         device=x.device).scatter_add_(1, idx, w)
     yt = torch.einsum("etd,te->td", ye.float(), gates)

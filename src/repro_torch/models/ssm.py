@@ -179,6 +179,8 @@ def _mamba_scan_chunk(h0, xin, dt, b, c, a):
     drive = (dt * xin)[..., None] * b[:, :, None, :]         # (B,Q,di,n)
     acum, bcum = _doubling_scan(decay, drive)
     h = acum * h0[:, None] + bcum
+    # detlint: ok[DET001] Mamba output contraction over d_state: the layer's
+    # math, not a segment reduction (reference models/ssm.py:84, an einsum)
     y = (h * c[:, :, None, :]).sum(-1)
     return y, h[:, -1]
 
@@ -251,6 +253,8 @@ def mamba_apply(p: Mamba, x, m: MambaCfg, *, mode: str = "train",
     decay = torch.exp(dt[:, 0, :, None] * (-a))              # (B,di,n)
     drive = (dt[:, 0] * xc[:, 0])[..., None] * b[:, 0, None, :]
     h = decay * state.h + drive
+    # detlint: ok[DET001] Mamba output contraction over d_state, as in the
+    # chunked scan (reference models/ssm.py:156, an einsum)
     y = (h * c[:, 0, None, :]).sum(-1) + xc[:, 0] * p.d_skip
     out = dense(p.out_proj,
                 (y[:, None] * F.silu(z.float())).to(x.dtype))
@@ -337,6 +341,8 @@ def _mlstm_chunk(c0, n0, m0, q, k, v, logi, logf):
     scores = (q @ k.transpose(-1, -2)) * aw                  # (B,H,t,s)
     inter = torch.exp(m0[..., None] - w)                     # (B,H,Q)
     num = scores @ v + inter[..., None] * (q @ c0.transpose(-1, -2))
+    # detlint: ok[DET001] softmax denominator; algebra routing is a ROADMAP
+    # item (reference models/ssm.py:234)
     den = scores.sum(-1) + inter * (q @ n0[..., None])[..., 0]
     den = torch.maximum(den.abs(), torch.exp(-(f_cum + w)))
     h = num / den[..., None]

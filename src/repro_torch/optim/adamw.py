@@ -78,6 +78,9 @@ def global_norm(tree: Dict[str, torch.Tensor], *,
         return torch.zeros((), dtype=torch.float32)
     dev = leaves[0].device
     if policy is None:
+        # detlint: ok[DET001] policy=None legacy path (pairwise tree), bits
+        # pinned; global_norm(policy=) is the front door (reference
+        # optim/adamw.py:67)
         sq = [torch.sum(x.to(torch.float32) ** 2) for x in leaves]
         return torch.sqrt(pairwise_tree_sum(torch.stack(sq), axis=0))
     from .. import reduce as _reduce

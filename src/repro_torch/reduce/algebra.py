@@ -48,6 +48,9 @@ class ReduceOp:
     takes_coeffs: bool = False
     requires_coeffs: bool = False
     needs_count: bool = False
+    #: True when ``pre`` weighs a row by its index in the whole stream; its
+    #: ``pre`` then takes ``row_offset=``, the index of the first row given
+    row_indexed: bool = False
 
     def pre(self, values, *, weights=None, coeffs=None):
         """(N, D) raw rows -> (N, components*D) rows to fold."""
@@ -159,21 +162,26 @@ class PolyOp(ReduceOp):
     name = "poly"
     takes_coeffs = True
     requires_coeffs = True
+    row_indexed = True
 
-    def pre(self, values, *, weights=None, coeffs=None):
+    def pre(self, values, *, weights=None, coeffs=None, row_offset=0):
         return _weighted(values, poly_weights(values.shape[0], coeffs,
-                                              device=values.device))
+                                              device=values.device,
+                                              offset=row_offset))
 
 
 def poly_weights(n: int, coeffs: Sequence[float],
-                 device=None) -> torch.Tensor:
-    """(n,) f32 weights ``w_i = p(i)`` by Horner's rule in f32 (a separate
-    multiply and add per step).
+                 device=None, offset: int = 0) -> torch.Tensor:
+    """(n,) f32 weights ``w_i = p(offset + i)`` by Horner's rule in f32 (a
+    separate multiply and add per step).
 
     >>> [float(v) for v in poly_weights(4, (1.0, 2.0))]
     [1.0, 3.0, 5.0, 7.0]
     """
-    i = torch.arange(n, dtype=torch.float32, device=device)
+    # detlint: ok[DET006] time-index weights are float by definition; max_terms
+    # bounds n <= 2^24 where the grid is exact (reference
+    # reduce/algebra.py:229)
+    i = torch.arange(offset, offset + n, dtype=torch.float32, device=device)
     w = torch.zeros(n, dtype=torch.float32, device=device)
     for c in reversed(tuple(coeffs)):
         w = w * i + float(np.float32(c))

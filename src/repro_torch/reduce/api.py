@@ -99,6 +99,7 @@ def _counts(segment_ids, num_segments: int, device, group=None):
     safe = torch.where(ids >= 0, ids, torch.full_like(ids, num_segments))
     cnt = torch.zeros((num_segments + 1, 1), dtype=torch.int32,
                       device=device)
+    # detlint: ok[DET003] int32 domain: in-range row counts, exact in any order
     cnt.index_add_(0, safe, torch.ones((ids.shape[0], 1), dtype=torch.int32,
                                        device=device))
     cnt = cnt[:num_segments]
@@ -149,6 +150,8 @@ def _sum(values, segment_ids, *, spec: ReduceSpec, num_segments: int,
                          torch.zeros((), dtype=values.dtype, device=dev))
     if with_status:
         bad = torch.logical_not(torch.all(torch.isfinite(values)))
+        # detlint: ok[DET002] int32 domain: a kept-row count, exact in any
+        # order
         kept = keep.to(torch.int32).sum(dtype=torch.int32)
         if group is not None:
             bad = comm.psum(bad.to(torch.int32), group) > 0
@@ -365,7 +368,11 @@ def reduce(values, *, segment_ids=None, num_segments: Optional[int] = None,
             raise ValueError(
                 f"weights must be (N,) or (N, 1) matching values' "
                 f"N={values.shape[0]}, got shape {tuple(weights.shape)}")
-    values = op_.pre(values, weights=weights, coeffs=spec.coeffs)
+    pre_kw = {}
+    if op_.row_indexed and group is not None:
+        # this rank's rows start where the earlier ranks' rows end
+        pre_kw["row_offset"] = comm.rows_before(values.shape[0], group)
+    values = op_.pre(values, weights=weights, coeffs=spec.coeffs, **pre_kw)
 
     segmented = segment_ids is not None
     if segmented:

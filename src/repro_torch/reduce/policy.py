@@ -154,6 +154,8 @@ def int_contrib(ids, vals, num_segments: int):
     base = torch.arange(nb, device=ids.device)[:, None] * (num_segments + 1)
     out = torch.zeros((nb * (num_segments + 1), w), dtype=torch.int32,
                       device=vals.device)
+    # detlint: ok[DET003] int32 domain: the integer tiers' gather, the same
+    # bits in any order
     out.index_add_(0, (base + safe).reshape(-1),
                    vals.reshape(-1, w).to(torch.int32))
     return out.view(nb, num_segments + 1, w)[:, :num_segments]
@@ -219,9 +221,12 @@ class Policy:
         return float_contrib(ids, vals, num_segments, lanes=1)
 
     def contrib_lanes(self, ids, vals, num_segments: int, *,
-                      lanes: int = LANES_DEFAULT):
+                      seg_offset: int = 0, lanes: int = LANES_DEFAULT):
         """Lane-form gather: bitwise the dot form for integer domains, a
-        different (pinned) rounding order for float ones."""
+        different (pinned) rounding order for float ones.  Labels are
+        taken relative to ``seg_offset``, as in the reference's hook."""
+        if seg_offset:
+            ids = ids - seg_offset
         if self.integer:
             return int_contrib(ids, vals, num_segments)
         return float_contrib(ids, vals, num_segments, lanes=lanes)

@@ -195,7 +195,11 @@ def make_train_step(cfg: ModelConfig, *, lr_fn: Callable,
                                                  "group": group}
             grads, (losses, metricses) = accumulate(
                 grad_fn, model, mbs, num_microbatches=m_local, **kw)
+            # detlint: ok[DET001] m microbatch loss scalars; the gradients take
+            # the front door above (reference train/steps.py:92)
             loss = gathered(losses).mean()
+            # detlint: ok[DET001] m microbatch metrics, logging only (reference
+            # train/steps.py:92)
             metrics = {k: gathered(v).mean() for k, v in metricses.items()}
         else:
             grads, (loss, metrics) = grad_fn(model, batch)

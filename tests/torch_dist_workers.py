@@ -255,6 +255,15 @@ def sharded_reduce(group, *, stream, ids, nseg, block, device):
             for p in TIERS}
 
 
+def contract_matrix(group, *, backends):
+    """``run_contracts(group=group)`` over ``backends`` in this rank: each
+    finding as a dict (rule, path, message, waived, not_run)."""
+    from repro_torch.analysis import run_contracts
+    return [{"rule": f.rule, "path": f.path, "message": f.message,
+             "waived": f.waived, "not_run": f.not_run}
+            for f in run_contracts(group=group, backends=backends)]
+
+
 def fail_on_rank(group, *, rank, sleep=0.0):
     """Raise on ``rank`` (after ``sleep`` seconds on the others): a rank
     failing mid-group."""
